@@ -1,0 +1,678 @@
+"""Genome-scale windowed imputation engine (dist/distmix).
+
+The reference scales to a genome by calling dist/distmix once per
+window, re-reading the panel every call (SURVEY.md section 2.3).  Here
+the panel region is decoded once (PanelStore), the selected populations
+are uploaded to the engine's device once, and a region's windows run as
+one batch through the resident region kernel
+(``ops/window_kernel.build_resident_region_kernel``: K2 row gather at
+preparation, two K1 Grams per region, f32 solves).  A float64 host path
+(``PreparedRun.impute_window``) reproduces the reference arithmetic and
+is the parity anchor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from collections import deque
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import pandas as pd
+import torch
+
+from ..config import DEFAULT_SETTINGS, PanelFiles, Settings
+from ..core import linalg, stats, variants
+from ..io import readers
+from ..io.panel import PanelReader, read_panel_index
+from ..ops.gram import K_CHUNK, ROW_TILE
+from ..ops.window_kernel import (WindowKernelSpec,
+                                 build_resident_region_kernel,
+                                 pad_pop_segments, prepare_resident_panel,
+                                 win_slab)
+from ..utils.special import pnorm_two_sided
+
+
+# ---------------------------------------------------------------------------
+# PanelStore: one-shot decoded panel region
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PanelStore:
+    """Columnar decoded panel (SURVEY.md section 7)."""
+
+    index: pd.DataFrame            # rsid chr bp a1 a2 af1ref fpos
+    G: np.ndarray                  # int8 [n_snps, S_all] all populations
+    af: np.ndarray                 # float64 [n_snps, P]
+    desc: readers.PopDesc
+
+    @classmethod
+    def from_bgzf(cls, panel: PanelFiles, chrom: int = 0,
+                  start_bp: Optional[int] = None,
+                  end_bp: Optional[int] = None) -> "PanelStore":
+        desc = readers.read_pop_desc(panel.pop_desc_file)
+        idx = read_panel_index(panel.index_file, chrom=chrom,
+                               start_bp=start_bp, end_bp=end_bp)
+        reader = PanelReader(panel.data_file, desc)
+        dec = reader.decode_rows(idx["fpos"].to_numpy())
+        return cls(index=idx, G=dec.G, af=dec.af, desc=desc)
+
+    def save(self, dir_path: str) -> None:
+        os.makedirs(dir_path, exist_ok=True)
+        np.save(os.path.join(dir_path, "G.npy"), self.G)
+        np.save(os.path.join(dir_path, "af.npy"), self.af)
+        self.index.to_parquet(os.path.join(dir_path, "index.parquet"))
+        with open(os.path.join(dir_path, "pop_desc.txt"), "w") as fh:
+            fh.write("Population_Abbreviation\tN\tSuper_Population\n")
+            for p, m, sp in zip(self.desc.pops, self.desc.sizes,
+                                self.desc.sup_pops):
+                fh.write(f"{p}\t{m}\t{sp}\n")
+
+    @classmethod
+    def load(cls, dir_path: str) -> "PanelStore":
+        G = np.load(os.path.join(dir_path, "G.npy"), mmap_mode="r")
+        af = np.load(os.path.join(dir_path, "af.npy"))
+        index = pd.read_parquet(os.path.join(dir_path, "index.parquet"))
+        desc = readers.read_pop_desc(os.path.join(dir_path, "pop_desc.txt"))
+        return cls(index=index, G=np.asarray(G), af=af, desc=desc)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _aligned_max_bytes(device: torch.device) -> int:
+    """Largest aligned-layout batch (int8 band bytes) before the shared
+    layout takes over.  GAUSS_ALIGNED_MAX_BYTES overrides.
+
+    Rule: a third of the memory free on the device when the batch is
+    built.  A new aligned batch is built before the previous one is
+    evicted, so two can coexist; the last third is left for the region
+    tail's [W, Mp, Mp] f32 temporaries.  On the CPU the same rule applies
+    to the host's physical memory."""
+    env = os.environ.get("GAUSS_ALIGNED_MAX_BYTES")
+    if env:
+        return int(env)
+    if device.type == "cuda":
+        free, _ = torch.cuda.mem_get_info(device)
+    else:
+        free = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return int(free) // 3
+
+
+@dataclasses.dataclass
+class WindowResult:
+    table: pd.DataFrame            # output rows for the prediction window
+    n_measured: int
+    n_unmeasured: int
+
+
+class GenomeEngine:
+    """Windowed distmix/dist over a PanelStore on one explicit device."""
+
+    def __init__(self, store: PanelStore, device,
+                 settings: Settings = DEFAULT_SETTINGS,
+                 device_linalg: bool = False):
+        """``device``: where the panel and the region kernel live (a
+        ``torch.device`` or its name); the engine never picks one.
+        ``device_linalg``: impute_region runs the batched f32 region
+        kernel there; otherwise it loops the float64 host path."""
+        # The region tail's f32 matmuls and solves must run in full f32,
+        # as the reference tail runs at Precision.HIGHEST: TF32 keeps ~3
+        # decimal digits and would cost the covariances their last ones.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.store = store
+        self.device = torch.device(device)
+        self.settings = settings
+        self.device_linalg = device_linalg
+        self._fns: Dict = {}
+
+    # -- selection --------------------------------------------------------
+    def _select(self, pop_flags: np.ndarray):
+        sel = np.flatnonzero(pop_flags != 0)
+        bounds = stats.segment_bounds(self.store.desc.sizes)
+        cols = np.concatenate([np.arange(bounds[k], bounds[k + 1])
+                               for k in sel])
+        sizes = tuple(int(self.store.desc.sizes[k]) for k in sel)
+        return sel, cols, sizes
+
+    def _join(self, input_df: pd.DataFrame):
+        """Join the input against the in-memory index; map fpos back to
+        store rows (-1 where the panel lacks the SNP)."""
+        table = variants.join_reference_index(
+            input_df, self.store.index, add_unmeasured=True)
+        fmap = pd.Series(np.arange(len(self.store.index)),
+                         index=self.store.index["fpos"].to_numpy())
+        g_row = np.full(len(table), -1, dtype=np.int64)
+        has = table["fpos"].to_numpy() >= 0
+        g_row[has] = fmap.reindex(table["fpos"].to_numpy()[has]).to_numpy()
+        return table, g_row, has
+
+    def prepare_mix(self, input_df: pd.DataFrame, pop_wgt: Dict[str, float],
+                    af1_cutoff: float = 0.01) -> "PreparedRun":
+        """Join input against the in-memory index + AF filter, once for
+        the whole region."""
+        flags, wgts = readers.init_pop_flag_wgts(self.store.desc, pop_wgt)
+        sel, cols, sizes = self._select(flags)
+        table, g_row, has = self._join(input_df)
+        af1 = np.full(len(table), np.nan)
+        af1[has] = self.store.af[g_row[has]][:, sel] @ wgts
+        table = table.assign(af1mix=af1)
+        # type-2 rows (~has) drop like the reference's MakeSnpVecMix
+        # NaN-filter drops them
+        keep = has.copy()
+        keep[has] = (af1[has] > af1_cutoff) & (af1[has] < 1 - af1_cutoff)
+        table = table[keep].reset_index(drop=True)
+        g_row = g_row[keep]
+        return PreparedRun(self, table, g_row, cols, sizes,
+                           tuple(float(x) for x in wgts))
+
+    def prepare_homog(self, input_df: pd.DataFrame, study_pop: str,
+                      af1_cutoff: float = 0.01) -> "PreparedRun":
+        flags = readers.init_pop_flags(self.store.desc, study_pop)
+        sel, cols, sizes = self._select(flags)
+        table, g_row, has = self._join(input_df)
+        af1 = np.full(len(table), np.nan)
+        counts = self.store.G[np.ix_(g_row[has], cols)].astype(
+            np.int64).sum(axis=1)
+        af = counts / (2.0 * float(sum(sizes)))
+        af1[has] = np.ceil(af * 1e5) / 1e5
+        table = table.assign(af1ref=af1)
+        # type-2 rows drop like the reference's MakeSnpVec NaN-filter
+        keep = has.copy()
+        keep[has] = (af1[has] > af1_cutoff) & (af1[has] < 1 - af1_cutoff)
+        table = table[keep].reset_index(drop=True)
+        g_row = g_row[keep]
+        return PreparedRun(self, table, g_row, cols, sizes, None)
+
+    # -- region kernels ----------------------------------------------------
+    def _padded_sizes(self, sizes) -> Tuple[int, ...]:
+        """Per-pop device-panel segment widths: K1's K_CHUNK multiples
+        (the zero padding is exact)."""
+        return tuple(_round_up(int(s), K_CHUNK) for s in sizes)
+
+    def _spec(self, sizes, wgts) -> WindowKernelSpec:
+        return WindowKernelSpec(
+            pop_sizes=sizes, pop_sizes_padded=self._padded_sizes(sizes),
+            wgts=wgts, lam=self.settings.lambda_)
+
+    def _resident_fn(self, Mp: int, Up: int, sizes, wgts):
+        key = ("resident", Mp, Up, sizes, wgts)
+        fn = self._fns.get(key)
+        if fn is None:
+            fn = build_resident_region_kernel(self._spec(sizes, wgts),
+                                              Mp, Up)
+            self._fns[key] = fn
+        return fn
+
+
+@dataclasses.dataclass
+class PreparedRun:
+    engine: GenomeEngine
+    table: pd.DataFrame
+    g_row: np.ndarray
+    subj_cols: np.ndarray
+    pop_sizes: Tuple[int, ...]
+    wgts: Optional[Tuple[float, ...]]
+    _G_dev: Optional[torch.Tensor] = None
+    _res: Dict = dataclasses.field(default_factory=dict)
+
+    def _device_panel(self) -> torch.Tensor:
+        """Selected-population int8 dosage matrix on the engine's device,
+        uploaded once and reused by every region.  Population segments
+        are zero-padded to K_CHUNK columns (exact: zero columns add 0 to
+        every statistic)."""
+        if self._G_dev is None:
+            G = self.engine.store.G
+            cols = self.subj_cols
+            full = len(cols) == G.shape[1] and bool(
+                np.array_equal(cols, np.arange(G.shape[1])))
+            Gh = G if full else G[:, cols]
+            padded = self.engine._padded_sizes(self.pop_sizes)
+            if padded != tuple(self.pop_sizes):
+                Gh, got = pad_pop_segments(Gh, self.pop_sizes,
+                                           multiple=K_CHUNK)
+                assert got == padded
+            Gh = np.require(Gh, dtype=np.int8, requirements=["C", "W"])
+            self._G_dev = torch.from_numpy(Gh).to(self.engine.device)
+        return self._G_dev
+
+    def _window_plan(self, start_bp: int, end_bp: int, wing_size: int):
+        """Row selection for one window, or None if below the reference
+        minimum SNP counts (src/dist.cpp:145-151)."""
+        st = self.engine.settings
+        t = self.table
+        bp = t["bp"].to_numpy()
+        typ = t["type"].to_numpy()
+        in_ext = (bp >= start_bp - wing_size) & (bp <= end_bp + wing_size)
+        m_rows = np.flatnonzero(in_ext & (typ == 1))
+        u_rows = np.flatnonzero((typ == 0) & (bp >= start_bp)
+                                & (bp <= end_bp))
+        M, U = len(m_rows), len(u_rows)
+        if M <= st.min_num_measured_snp or U <= st.min_num_unmeasured_snp:
+            return None
+        return m_rows, u_rows, M, U, t["z"].to_numpy()[m_rows]
+
+    def impute_window(self, start_bp: int, end_bp: int,
+                      wing_size: int) -> Optional[WindowResult]:
+        """Impute one prediction window on the host in float64 (reference
+        semantics of run_distmix, src/distmix.cpp:138-253): exact
+        sufficient statistics, float64 combines, MakePosDef and an
+        inverse.  The parity anchor of the region kernel; runs on the CPU
+        whatever the engine's device."""
+        st = self.engine.settings
+        plan = self._window_plan(start_bp, end_bp, wing_size)
+        if plan is None:
+            return None
+        m_rows, u_rows, M, U, z1 = plan
+        G = self.engine.store.G
+        Gm = torch.from_numpy(G[np.ix_(self.g_row[m_rows], self.subj_cols)])
+        Gu = torch.from_numpy(G[np.ix_(self.g_row[u_rows], self.subj_cols)])
+        B11, B21 = _build_corr_blocks_fn(self.pop_sizes, self.wgts)(Gm, Gu)
+        B11.fill_diagonal_(1.0 + st.lambda_)
+        B11 = linalg.make_pos_def(B11, st.min_abs_eig)
+        A = B21 @ linalg.inv_mat(B11)
+        z2 = A @ torch.from_numpy(z1)
+        info = torch.abs((A * B21).sum(dim=1))
+        z = z2 / torch.sqrt(info)
+        return self._assemble(start_bp, end_bp, u_rows, z.numpy(),
+                              info.numpy(), M, U)
+
+    def _assemble(self, start_bp, end_bp, u_rows, z, info, M, U
+                  ) -> WindowResult:
+        """Output rows for the prediction window (pval = 2*Phi(-|z|),
+        src/distmix.cpp:100-134)."""
+        t = self.table
+        bp = t["bp"].to_numpy()
+        out_z = t["z"].to_numpy().copy()
+        out_info = t["info"].to_numpy().copy()
+        out_z[u_rows] = z
+        out_info[u_rows] = info
+        mask = (bp >= start_bp) & (bp <= end_bp)
+        tt = t[mask]
+        sel = np.flatnonzero(mask)
+        af_col = "af1mix" if self.wgts is not None else "af1ref"
+        res = pd.DataFrame({
+            "rsid": tt["rsid"].to_numpy(),
+            "chr": tt["chr"].to_numpy(),
+            "bp": tt["bp"].to_numpy(),
+            "a1": tt["a1"].to_numpy(),
+            "a2": tt["a2"].to_numpy(),
+            af_col: tt[af_col].to_numpy(),
+            "z": out_z[sel],
+            "pval": pnorm_two_sided(out_z[sel]),
+            "info": out_info[sel],
+            "type": tt["type"].to_numpy(),
+        })
+        return WindowResult(table=res, n_measured=M, n_unmeasured=U)
+
+    # -- resident region batches ---------------------------------------------
+    def _upload_rows(self, rows: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rows.astype(np.int32)).to(
+            self.engine.device)
+
+    def _resident_arrays(self, Mp: int, Up: int):
+        """Shared layout: bp-sorted measured/unmeasured panels + per-row
+        statistics, one pair for every region of this run.  Cached;
+        rebuilt only if a larger band than cached is requested."""
+        cached = self._res.get("caps")
+        if cached is not None and cached[0] >= Mp and cached[1] >= Up:
+            return self._res["arrays"]
+        if cached is not None:       # grow monotonically: alternating
+            Mp = max(Mp, cached[0])  # callers must not thrash rebuilds
+            Up = max(Up, cached[1])
+        typ = self.table["type"].to_numpy()
+        spec = self.engine._spec(self.pop_sizes, self.wgts)
+        G_dev = self._device_panel()
+
+        def build(rows_tbl, cap):
+            n = len(rows_tbl)
+            rows = np.zeros(_round_up(max(n, 1), ROW_TILE) + cap,
+                            dtype=np.int32)
+            rows[:n] = self.g_row[rows_tbl]
+            return prepare_resident_panel(G_dev, self._upload_rows(rows), n,
+                                          spec)
+        Xm, Spm, Mum, _ = build(np.flatnonzero(typ == 1), Mp)
+        Xu, Spu, Muu, Vu = build(np.flatnonzero(typ == 0), Up)
+        # update in place: self._res also caches ("batch", ...) /
+        # ("asm", ...) entries that must survive a cap-growing rebuild
+        # (already-built batches hold the OLD arrays, still valid for
+        # their own bands)
+        self._res.update({"arrays": (Xm, Xu, Spm, Spu, Mum, Muu, Vu),
+                          "caps": (Mp, Up)})
+        return self._res["arrays"]
+
+    def _window_batch(self, plans, Mp: int, Up: int, m_t0, u_t0):
+        """Padded Z1/mask batch + int32 band row offsets; W is padded to
+        a slab multiple with empty windows."""
+        W = len(plans)
+        Wp = _round_up(W, win_slab(W))
+        m_off = np.zeros(Wp, dtype=np.int32)
+        u_off = np.zeros(Wp, dtype=np.int32)
+        m_off[:W], u_off[:W] = m_t0, u_t0
+        m_off[W:] = m_off[W - 1]     # padding windows: any valid band
+        u_off[W:] = u_off[W - 1]
+        Z1b = np.zeros((Wp, Mp), dtype=np.float32)
+        m_maskb = np.zeros((Wp, Mp), dtype=np.float32)
+        u_maskb = np.zeros((Wp, Up), dtype=np.float32)
+        for i, (_, _, plan) in enumerate(plans):
+            _, _, M, U, z1 = plan
+            Z1b[i, :M] = z1
+            m_maskb[i, :M] = 1.0
+            u_maskb[i, :U] = 1.0
+        return m_off, u_off, Z1b, m_maskb, u_maskb
+
+    def _resident_batch_from_plans(self, plans):
+        """Shared-layout batch: window w is the row band starting at its
+        first measured / unmeasured row of the bp-sorted panels.  Windows
+        select bp ranges of the bp-sorted table, so their rows are
+        contiguous runs of the measured / unmeasured row lists."""
+        typ = self.table["type"].to_numpy()
+        m_all = np.flatnonzero(typ == 1)
+        u_all = np.flatnonzero(typ == 0)
+        m_t0, u_t0 = [], []
+        for _, _, plan in plans:
+            m_rows, u_rows, M, U, _ = plan
+            mpos = int(np.searchsorted(m_all, m_rows[0]))
+            upos = int(np.searchsorted(u_all, u_rows[0]))
+            if m_all[mpos + M - 1] != m_rows[-1] \
+                    or u_all[upos + U - 1] != u_rows[-1]:
+                raise RuntimeError("window rows are not contiguous in the "
+                                   "bp-sorted table")
+            m_t0.append(mpos)
+            u_t0.append(upos)
+        Mp = _round_up(max(p[2][2] for p in plans), ROW_TILE)
+        Up = _round_up(max(p[2][3] for p in plans), ROW_TILE)
+        return self._window_batch(plans, Mp, Up, m_t0, u_t0), Mp, Up
+
+    @staticmethod
+    def _aligned_bands(plans) -> Tuple[int, int]:
+        """(Mp, Up): the aligned layout's band heights for ``plans``."""
+        return (_round_up(max(p[2][2] for p in plans), ROW_TILE),
+                _round_up(max(p[2][3] for p in plans), ROW_TILE))
+
+    def _aligned_rows(self, plans) -> Tuple[np.ndarray, np.ndarray]:
+        """Panel row ids the aligned layout gathers (K2's index vectors):
+        window w's rows start at w*Mp / w*Up, -1 pads each band."""
+        Mp, Up = self._aligned_bands(plans)
+        Wp = _round_up(len(plans), win_slab(len(plans)))
+        rows_m = np.full(Wp * Mp, -1, dtype=np.int32)
+        rows_u = np.full(Wp * Up, -1, dtype=np.int32)
+        for i, (_, _, plan) in enumerate(plans):
+            m_rows, u_rows, M, U, _ = plan
+            rows_m[i * Mp:i * Mp + M] = self.g_row[m_rows]
+            rows_u[i * Up:i * Up + U] = self.g_row[u_rows]
+        return rows_m, rows_u
+
+    def _resident_aligned_batch(self, plans):
+        """Per-window ALIGNED layout: each window's measured/unmeasured
+        rows are gathered into a dedicated band of their own (pad rows =
+        -1 sentinels between bands).  Measured-extended windows overlap
+        (wings), so measured rows repeat across bands (~2.4x the rows of
+        the shared layout).  Returns (inputs, arrays, Mp, Up); arrays
+        belong to this batch alone."""
+        Mp, Up = self._aligned_bands(plans)
+        W = len(plans)
+        Wp = _round_up(W, win_slab(W))
+        rows_m, rows_u = self._aligned_rows(plans)
+        inputs = self._window_batch(plans, Mp, Up,
+                                    np.arange(W) * Mp, np.arange(W) * Up)
+        # padding windows own their (empty) bands
+        inputs[0][W:] = np.arange(W, Wp) * Mp
+        inputs[1][W:] = np.arange(W, Wp) * Up
+        spec = self.engine._spec(self.pop_sizes, self.wgts)
+        G_dev = self._device_panel()
+        Xm, Spm, Mum, _ = prepare_resident_panel(
+            G_dev, self._upload_rows(rows_m), None, spec)
+        Xu, Spu, Muu, Vu = prepare_resident_panel(
+            G_dev, self._upload_rows(rows_u), None, spec)
+        return inputs, (Xm, Xu, Spm, Spu, Mum, Muu, Vu), Mp, Up
+
+    def _region_batch(self, start_bp: int, end_bp: int, window_bp: int,
+                      wing_size: int):
+        """(plans, inputs, arrays, fn) for one region, or None when no
+        window clears the minimum counts; fn(*arrays, *inputs) -> [2, N]
+        and each plans entry is (lo, hi, window plan).  Every window's
+        rows start at its band's first row, in both layouts.
+
+        The table is immutable after prepare, so the batch is cached per
+        (start, end, window_bp, wing): repeated region calls skip the
+        host-side plan, the uploads and the preparation."""
+        ck = (start_bp, end_bp, window_bp, wing_size)
+        hit = self._res.get(("batch", ck))
+        if hit is not None:
+            return hit
+        out = self._region_batch_build(start_bp, end_bp, window_bp,
+                                       wing_size)
+        # the aligned layout gives each batch DEDICATED device panels
+        # (GBs at genome scale); keep only the newest such batch so a
+        # sweep over distinct spans does not accumulate one per region
+        # (repeat calls on one span still hit the cache above).  Aligned
+        # batches are the ones whose arrays are NOT the shared
+        # self._res["arrays"]; a shared-layout batch may also fail that
+        # identity test after a cap-growing rebuild -- evicting it too
+        # costs only a host-side rebuild, never device memory.
+        def _aligned(b):
+            return b is not None and b[2] is not self._res.get("arrays")
+        if _aligned(out):
+            for k in [k for k in self._res
+                      if isinstance(k, tuple) and k[0] == "batch"
+                      and k[1] != ck]:
+                if _aligned(self._res[k]):
+                    del self._res[k]
+                    self._res.pop(("asm", k[1]), None)
+        self._res[("batch", ck)] = out
+        return out
+
+    def _region_batch_build(self, start_bp: int, end_bp: int,
+                            window_bp: int, wing_size: int):
+        plans = []
+        lo = start_bp
+        while lo <= end_bp:
+            hi = min(lo + window_bp - 1, end_bp)
+            plan = self._window_plan(lo, hi, wing_size)
+            if plan is not None:
+                plans.append((lo, hi, plan))
+            lo = hi + 1
+        if not plans:
+            return None
+        # the aligned layout repeats measured bands across wings; above
+        # the byte cap (rows x padded subject axis) the shared bp-sorted
+        # layout takes over
+        Mp_a, Up_a = self._aligned_bands(plans)
+        S_pad = int(sum(self.engine._padded_sizes(self.pop_sizes)))
+        n_bytes = len(plans) * (Mp_a + Up_a) * S_pad
+        if n_bytes <= _aligned_max_bytes(self.engine.device):
+            inputs, arrays, Mp, Up = self._resident_aligned_batch(plans)
+        else:
+            inputs, Mp, Up = self._resident_batch_from_plans(plans)
+            arrays = self._resident_arrays(Mp, Up)
+        fn = self.engine._resident_fn(Mp, Up, self.pop_sizes, self.wgts)
+        # compaction indices, window by window (_region_assembly's order):
+        # the kernel keeps only REAL unmeasured rows
+        wi = np.concatenate([np.full(p[2][3], i, dtype=np.int64)
+                             for i, p in enumerate(plans)])
+        ci = np.concatenate([np.arange(p[2][3], dtype=np.int64)
+                             for p in plans])
+        # upload the pass-invariant batch inputs once: repeated region
+        # calls then launch with no host->device traffic
+        dev = self.engine.device
+        inputs = tuple(torch.from_numpy(a).to(dev)
+                       for a in inputs + (wi, ci))
+        return plans, inputs, arrays, fn
+
+    def _region_assembly(self, plans):
+        """Pass-invariant output skeleton for impute_region: emitted row
+        selection, static output columns, and the flat scatter positions
+        of the compacted kernel output.  Per pass only the value scatter
+        and the pval evaluation remain."""
+        t = self.table
+        bp = t["bp"].to_numpy()
+        emit = np.zeros(len(t), dtype=bool)
+        for lo, hi, _ in plans:
+            emit |= (bp >= lo) & (bp <= hi)
+        sel = np.flatnonzero(emit)
+        # u_rows lie inside [lo, hi] => always emitted
+        pos = np.concatenate([np.searchsorted(sel, plan[1])
+                              for _, _, plan in plans])
+        af_col = "af1mix" if self.wgts is not None else "af1ref"
+        tt = t.iloc[sel]
+        return {
+            "pos": pos,
+            "base_z": t["z"].to_numpy()[sel],
+            "base_info": t["info"].to_numpy()[sel],
+            "static": {
+                "rsid": tt["rsid"].to_numpy(),
+                "chr": tt["chr"].to_numpy(),
+                "bp": tt["bp"].to_numpy(),
+                "a1": tt["a1"].to_numpy(),
+                "a2": tt["a2"].to_numpy(),
+                af_col: tt[af_col].to_numpy(),
+                "type": tt["type"].to_numpy(),
+            },
+        }
+
+    def impute_region_async(self, start_bp: int, end_bp: int,
+                            window_bp: int = 1_000_000,
+                            wing_size: int = 500_000) -> "RegionHandle":
+        """Launch the region's kernels WITHOUT waiting for them.
+
+        After the first call for a span (which builds and caches its
+        batch), nothing here synchronizes with the device: the Grams, the
+        tail and the compaction are queued on the current stream of the
+        engine's device, followed by the copy of the compacted [2, N] output into pinned host memory.
+        Queuing the copy here, before the next region's kernels, lets
+        ``RegionHandle.result()`` wait for THIS region only, so region N's
+        assembly overlaps region N+1's kernels (impute_regions)."""
+        if not self.engine.device_linalg:
+            raise ValueError("impute_region_async requires device_linalg")
+        batch = self._region_batch(start_bp, end_bp, window_bp, wing_size)
+        if batch is None:
+            return RegionHandle(None, None, None)
+        plans, inputs, arrays, fn = batch
+        out = fn(*arrays, *inputs)
+        ready = None
+        if out.is_cuda:
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            # the copy runs on the stream of out's device, which need not
+            # be the current device: record the event there
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(out.device))
+            out = host
+        ck = ("asm", (start_bp, end_bp, window_bp, wing_size))
+        asm = self._res.get(ck)
+        if asm is None:
+            asm = self._region_assembly(plans)
+            self._res[ck] = asm
+        return RegionHandle(out, ready, asm)
+
+    def impute_regions(self, spans, window_bp: int = 1_000_000,
+                       wing_size: int = 500_000, depth: int = 2):
+        """Pipelined multi-region imputation: yields (start_bp, end_bp,
+        DataFrame) per span with up to ``depth`` regions in flight."""
+        depth = max(int(depth), 1)      # depth<1 degrades to sequential
+        pending: deque = deque()
+        for lo, hi in spans:
+            if len(pending) >= depth:   # cap in-flight handles at depth
+                lo0, hi0, h = pending.popleft()
+                yield lo0, hi0, h.result()
+            pending.append((lo, hi, self.impute_region_async(
+                lo, hi, window_bp, wing_size)))
+        while pending:
+            lo0, hi0, h = pending.popleft()
+            yield lo0, hi0, h.result()
+
+    def impute_region(self, start_bp: int, end_bp: int,
+                      window_bp: int = 1_000_000,
+                      wing_size: int = 500_000) -> pd.DataFrame:
+        """Tile [start_bp, end_bp] with non-overlapping prediction windows
+        (plus wings) and impute them all: one batched region kernel with
+        device_linalg, else the float64 host path window by window."""
+        frames = []
+        if self.engine.device_linalg:
+            res = self.impute_region_async(start_bp, end_bp, window_bp,
+                                           wing_size).result()
+            if len(res):
+                frames.append(res)
+        else:
+            lo = start_bp
+            while lo <= end_bp:
+                hi = min(lo + window_bp - 1, end_bp)
+                r = self.impute_window(lo, hi, wing_size)
+                if r is not None:
+                    frames.append(r.table)
+                lo = hi + 1
+        if not frames:
+            return pd.DataFrame()
+        return pd.concat(frames, ignore_index=True)
+
+
+class RegionHandle:
+    """In-flight region imputation (see impute_region_async): the host
+    copy of the compacted [2, N] output (complete once ``ready`` fires;
+    None on the CPU) and the precomputed assembly skeleton.  .result()
+    waits for this region alone and assembles the frame."""
+
+    __slots__ = ("_out", "_ready", "_asm", "_frame")
+
+    def __init__(self, out, ready, asm):
+        self._out = out
+        self._ready = ready
+        self._asm = asm
+        self._frame = None
+
+    def result(self) -> pd.DataFrame:
+        if self._frame is None:
+            if self._out is None:
+                self._frame = pd.DataFrame()
+            else:
+                if self._ready is not None:
+                    self._ready.synchronize()
+                zi = self._out.numpy()
+                self._out = self._ready = None
+                asm = self._asm
+                out_z = asm["base_z"].copy()
+                out_info = asm["base_info"].copy()
+                out_z[asm["pos"]] = zi[0].astype(np.float64)
+                out_info[asm["pos"]] = zi[1].astype(np.float64)
+                cols = dict(asm["static"])
+                typ = cols.pop("type")
+                cols.update(z=out_z, pval=pnorm_two_sided(out_z),
+                            info=out_info, type=typ)
+                self._frame = pd.DataFrame(cols, copy=False)
+        return self._frame
+
+
+def _build_corr_blocks_fn(pop_sizes, wgts):
+    """(Gm [M,S] int8, Gu [U,S] int8) -> (B11 f64 [M,M], B21 f64 [U,M])
+    correlation blocks on the host (diagonals NOT ridged; the caller
+    applies that)."""
+    bounds = stats.segment_bounds(pop_sizes)
+
+    if wgts is None:
+        def fn(Gm, Gu):
+            return (stats.pooled_corr_matrix(Gm, Gm),
+                    stats.pooled_corr_matrix(Gu, Gm))
+        return fn
+
+    m64 = np.asarray(pop_sizes, dtype=np.float64)
+    w64 = np.asarray(wgts, dtype=np.float64)
+
+    def fn(Gm, Gu):
+        C_mm = stats.pop_cross_products(Gm, Gm, bounds)
+        C_um = stats.pop_cross_products(Gu, Gm, bounds)
+        S_m, Q_m = stats.pop_row_stats(Gm, bounds)
+        S_u, Q_u = stats.pop_row_stats(Gu, bounds)
+        var_m = stats.wgt_var_combine(Q_m, S_m, m64, w64)
+        var_u = stats.wgt_var_combine(Q_u, S_u, m64, w64)
+        one = torch.ones((), dtype=torch.float64)
+        std_m = torch.sqrt(torch.where(var_m > 0, var_m, one))
+        std_u = torch.sqrt(torch.where(var_u > 0, var_u, one))
+        cov_mm = stats.wgt_cov_combine(C_mm, S_m, S_m, m64, w64)
+        cov_um = stats.wgt_cov_combine(C_um, S_u, S_m, m64, w64)
+        return (cov_mm / (std_m[:, None] * std_m[None, :]),
+                cov_um / (std_u[:, None] * std_m[None, :]))
+    return fn

@@ -1,0 +1,109 @@
+"""Build and load the package's CUDA kernels.
+
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ``ctypes``.  No
+PyTorch header is included, so a build takes seconds.  The library lives
+in ``gauss_tpu_torch/_build/`` under a name keyed by a hash of the sources
+and flags: an unchanged tree loads the existing build.  A failed build
+raises with nvcc's output; nothing falls back to the plain versions.
+
+Nothing here runs at import time: ``library()`` builds on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Optional
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIB: Optional[ctypes.CDLL] = None
+#: seconds the last ``library()`` call spent compiling (0.0 on a cache hit)
+build_seconds = 0.0
+#: nvcc's output of that build: ptxas registers / shared memory per kernel
+build_log = ""
+
+_P = ctypes.c_void_p
+_SIGNATURES = {
+    # (G, idx, out, n, S, R, stream)
+    "gauss_gather_rows": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                          ctypes.c_longlong, _P],
+    # (X, Y, x0, y0, out, W, nx, ny, S, RX, RY, nseg, ends, beta, sym,
+    #  stream)
+    "gauss_weighted_gram_t1": [_P, _P, _P, _P, _P, ctypes.c_int,
+                               ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+                               ctypes.c_longlong, ctypes.c_longlong,
+                               ctypes.c_int, _P, _P, ctypes.c_int, _P],
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    cands = ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+        shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    for c in cands:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found (set CUDA_HOME); the CUDA kernels "
+                       "of gauss_tpu_torch are built from source on first "
+                       "use")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
+    return srcs
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiled first if its build is missing."""
+    global _LIB, build_seconds, build_log
+    if _LIB is not None:
+        return _LIB
+    srcs = _sources()
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        with open(s, "rb") as fh:
+            h.update(os.path.basename(s).encode() + b"\0" + fh.read())
+    so = os.path.join(BUILD_DIR, f"libgauss_kernels_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                "nvcc failed (exit %d): %s\n%s\n%s" % (
+                    proc.returncode, " ".join(cmd), proc.stdout,
+                    proc.stderr))
+        os.replace(tmp, so)    # atomic: a concurrent loader sees all or none
+        build_seconds = time.perf_counter() - t0
+        build_log = proc.stdout + proc.stderr
+    lib = ctypes.CDLL(so)
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    lib.gauss_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.gauss_cuda_error_string.restype = ctypes.c_char_p
+    _LIB = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error code."""
+    if err != 0:
+        msg = library().gauss_cuda_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
