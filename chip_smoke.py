@@ -1,5 +1,6 @@
 #!/usr/bin/env python
-"""Drive gauss_tpu_torch's main path once on one CUDA card and check it.
+"""Drive gauss_tpu_torch's region paths once on one CUDA card and check
+them.
 
     python3 chip_smoke.py [--snps N]
 
@@ -19,12 +20,28 @@ Phases (each prints its evidence; any failure exits non-zero):
               K2 bit-equal), timed with CUDA events.
 5. parity  -- the first window against the port's float64 host path:
               max|dZ| <= 1e-4 on imputed rows, measured rows bit-equal.
+6. LD      -- PreparedRun.ld_region over the same region (1 Mb windows,
+              computeLD semantics), fetch "i16tri" and "f32" on the same
+              prepared run: K1 runs at least once per call and K2 gathers
+              the measured panel; K1 and K2 against their plain versions
+              on the LD batch's own inputs (band offsets at each window's
+              first measured row); the first, middle and last windows
+              against the float64 ldkernels.weighted_corr (max|dr| <=
+              2e-4, plus LD_I16_MAX_ERR for i16tri; unit diagonal exact).
+7. qcat    -- PreparedRun.qcat_region over the same region with impute's
+              windows (its region batch rebuilt, so K2 runs too): K1 twice
+              per slab of windows; the first, middle and last windows
+              against the float64 host qcat (_qcat_core on
+              _build_corr_blocks_fn's blocks): qcat_m equal, max|dr| <=
+              1e-4 on r = t / sqrt(m - 3).
 
-The line before the last is a JSON object {"kernels": [...]}; the last
-is {"ok": true, "device": {...}}.
+Each path's kernel launch counts are set to 0 just before it runs and
+read just after.  The line before the last is a JSON object
+{"kernels": [...]}; the last is {"ok": true, "device": {...}}.
 """
 
 import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -37,8 +54,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gauss_tpu_torch.models.genome import GenomeEngine          # noqa: E402
+from gauss_tpu_torch.core import ldkernels                     # noqa: E402
+from gauss_tpu_torch.models import qcat                        # noqa: E402
+from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
+                                           _build_corr_blocks_fn)
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
+from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
+from gauss_tpu_torch.ops.window_kernel import (LD_I16_MAX_ERR,  # noqa: E402
+                                               _gram_segments, win_slab)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,     # noqa: E402
                                              make_bench_input)
 
@@ -50,10 +73,22 @@ WING_BP = 500_000
 N_PIPE = 8
 K1_REL_TOL = 1e-6        # f32 folds of exact int32 segment sums
 DZ_TOL = 1e-4            # f32 region solves vs the float64 host path
+DR_LD_TOL = 2e-4         # f32 LD vs the float64 weighted correlations
+DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
 
 
 def log(msg):
     print(f"[smoke] {msg}", flush=True)
+
+
+def reset_counts():
+    gram.launches = 0
+    gather.launches = 0
+
+
+def read_counts():
+    return {"weighted_gram_t1": gram.launches,
+            "gather_rows": gather.launches}
 
 
 def cuda_ms(fn, reps):
@@ -124,8 +159,7 @@ def phase_main(dev, n_snps):
             torch.backends.cudnn.allow_tf32:
         raise AssertionError("the engine left TF32 on")
 
-    gram.launches = 0
-    gather.launches = 0
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     t = time.perf_counter()
     res = run.impute_region(lo, hi, window_bp=WINDOW_BP, wing_size=WING_BP)
@@ -140,8 +174,7 @@ def phase_main(dev, n_snps):
                                         wing_size=WING_BP, depth=2):
         pass
     pipe_s = (time.perf_counter() - t) / N_PIPE
-    launches = {"weighted_gram_t1": gram.launches,
-                "gather_rows": gather.launches}
+    launches = read_counts()
     n_regions = 2 + N_PIPE
     log(f"launches during the main path: {launches} over {n_regions} "
         f"region calls and 1 prepared batch")
@@ -151,80 +184,58 @@ def phase_main(dev, n_snps):
         raise AssertionError("K2 was not launched for the prepared batch")
 
     batch = run._region_batch(lo, hi, WINDOW_BP, WING_BP)
-    plans, inputs, arrays, fn = batch
-    Wp, Mp = inputs[2].shape
-    Up = inputs[4].shape[1]
-    S = arrays[0].shape[1]
+    Wp, Mp, Up = batch.inputs[2].shape[0], batch.Mp, batch.Up
+    S = batch.arrays[0].shape[1]
     peak = torch.cuda.max_memory_allocated(dev)
-    log(f"region: {len(plans)} windows (Wp={Wp}, Mp={Mp}, Up={Up}, S={S}), "
+    log(f"region: {len(batch.plans)} windows (Wp={Wp}, Mp={Mp}, Up={Up}, "
+        f"S={S}), "
         f"{n_imputed} imputed SNPs per pass; peak device memory "
         f"{peak / 2**30:.2f} GiB")
     log(f"first pass (incl. panel upload, K2 gathers, preparation) "
         f"{first_s:.3f}s; blocking pass {block_s:.4f}s -> "
         f"{n_imputed / block_s:.1f} SNPs/s; pipelined ({N_PIPE} passes, "
         f"2 in flight) {pipe_s:.4f}s/pass -> {n_imputed / pipe_s:.1f} SNPs/s")
-    region_ms = cuda_ms(lambda: fn(*arrays, *inputs), 5)
+    fn = run._kernel_fn("impute", Mp, Up)
+    region_ms = cuda_ms(lambda: fn(*batch.arrays, *batch.inputs,
+                                   *batch.compact), 5)
     log(f"region on the card (CUDA events, median of 5): {region_ms:.3f} ms")
-    return engine, run, res, lo, launches, batch, region_ms
+    return engine, run, res, lo, hi, launches, batch, region_ms
 
 
-def phase_kernels(engine, run, batch, region_ms, reps=5):
-    """K1 and K2 against their plain versions on the main path's own
-    region batch: its shifted panels, band offsets and gathered row ids
-    (the aligned layout, which the engine picks on this card)."""
-    plans, inputs, arrays, _ = batch
-    Xm, Xu = arrays[0], arrays[1]
-    m0, u0 = inputs[0], inputs[1]
-    Wp, Mp = inputs[2].shape
-    Up = inputs[4].shape[1]
-    if Xm.shape[0] != Wp * Mp or Xu.shape[0] != Wp * Up:
-        raise AssertionError("the main path did not take the aligned "
-                             "layout; K2's row ids below would not be its")
-    spec = engine._spec(run.pop_sizes, run.wgts)
-    seg = (spec.pop_sizes, spec.pop_sizes_padded, spec.wgts)
-    n = sum(spec.pop_sizes)
-    pooled = ((n,), (sum(spec.pop_sizes_padded),),
-              ((n - 1.0) / (float(n) * n),))       # beta = 1
-    cases = [
-        ("mm", (Xm, Xm, *seg, m0, m0, Mp, Mp, True)),
-        ("um", (Xu, Xm, *seg, u0, m0, Up, Mp, False)),
-        ("mm pooled", (Xm, Xm, *pooled, m0, m0, Mp, Mp, True)),
-    ]
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for label, args in cases:
-        sym = args[-1]
-        got = gram.weighted_gram_t1(*args)
-        ref = gram.weighted_gram_t1_plain(*args)
-        if sym:
-            got, ref = gram.mirror_lower(got), gram.mirror_lower(ref)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        rel = err / float(ref.abs().max())
-        del got, ref
-        ms = cuda_ms(lambda: gram.weighted_gram_t1(*args), reps)
-        pms = cuda_ms(lambda: gram.weighted_gram_t1_plain(*args), 2)
-        ops = 2.0 * Wp * args[7] * args[8] * sum(args[3])
-        log(f"K1 {label}: W={Wp} nx={args[7]} ny={args[8]} S={sum(args[3])} "
-            f"segments={len(args[3])}: max abs err {err:.3e}, rel "
-            f"{rel:.3e} (tol {K1_REL_TOL:g}); kernel {ms:.3f} ms "
-            f"({ops / ms / 1e9:.1f} int TOPS counting the full tile grid), "
-            f"plain {pms:.3f} ms")
-        if not rel <= K1_REL_TOL:
-            raise AssertionError(f"K1 {label} disagrees with its plain "
-                                 f"version: rel {rel:.3e}")
-        if label != "mm pooled":
-            k1["max_abs_err"] = max(k1["max_abs_err"], err)
-            k1["ms"] += ms
-            k1["plain_ms"] += pms
-    log(f"region {region_ms:.3f} ms = K1 {k1['ms']:.3f} ms (mm + um) + "
-        f"tail {region_ms - k1['ms']:.3f} ms")
+def k1_check(label, args, reps=5, plain_reps=2):
+    """K1 against its plain version on one launch's arguments (a sym
+    launch's lower triangles mirrored on both sides), then both timed:
+    (max abs err, kernel ms, plain ms).  Fails above K1_REL_TOL."""
+    got = gram.weighted_gram_t1(*args)
+    ref = gram.weighted_gram_t1_plain(*args)
+    if args[-1]:
+        got, ref = gram.mirror_lower(got), gram.mirror_lower(ref)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del got, ref
+    ms = cuda_ms(lambda: gram.weighted_gram_t1(*args), reps)
+    pms = cuda_ms(lambda: gram.weighted_gram_t1_plain(*args), plain_reps)
+    offs = args[5].cpu().numpy()
+    Wp, nx, ny, S = offs.shape[0], args[7], args[8], sum(args[3])
+    log(f"K1 {label}: W={Wp} nx={nx} ny={ny} S={S} segments={len(args[3])}"
+        f", {int((offs % ROW_TILE != 0).sum())} of {Wp} x offsets not a "
+        f"multiple of {ROW_TILE}: max abs err {err:.3e}, rel {rel:.3e} "
+        f"(tol {K1_REL_TOL:g}); kernel {ms:.3f} ms "
+        f"({2.0 * Wp * nx * ny * S / ms / 1e9:.1f} int TOPS counting the "
+        f"full tile grid), plain {pms:.3f} ms")
+    if not rel <= K1_REL_TOL:
+        raise AssertionError(f"K1 {label} disagrees with its plain "
+                             f"version: rel {rel:.3e}")
     torch.cuda.empty_cache()
+    return err, ms, pms
 
-    # K2 on the batch's own index vectors: both bands' row ids, -1
-    # sentinels padding each window's band
-    rows_m, rows_u = run._aligned_rows(plans)
-    idx = torch.from_numpy(np.concatenate([rows_m, rows_u])).to(Xm.device)
-    G = run._device_panel()
+
+def k2_check(label, G, rows, reps=5):
+    """K2 against its plain version on one gather's row ids (-1 =
+    sentinel), then both timed: (kernel ms, plain ms).  Fails unless
+    bit-equal."""
+    idx = torch.from_numpy(rows).to(G.device)
     got = gather.gather_rows(G, idx)
     ref = gather.gather_rows_plain(G, idx)
     equal = bool(torch.equal(got, ref))
@@ -232,13 +243,49 @@ def phase_kernels(engine, run, batch, region_ms, reps=5):
     ms = cuda_ms(lambda: gather.gather_rows(G, idx), reps)
     pms = cuda_ms(lambda: gather.gather_rows_plain(G, idx), reps)
     N, S = idx.shape[0], G.shape[1]
-    log(f"K2: R={G.shape[0]} S={S} N={N} ({int((idx < 0).sum())} "
+    log(f"K2 {label}: R={G.shape[0]} S={S} N={N} ({int((idx < 0).sum())} "
         f"sentinels): bit-equal={equal}; kernel {ms:.3f} ms "
         f"({2.0 * N * S / ms / 1e6:.0f} GB/s read+write), plain "
         f"{pms:.3f} ms")
     if not equal:
-        raise AssertionError("K2 differs from its plain version")
+        raise AssertionError(f"K2 {label} differs from its plain version")
     torch.cuda.empty_cache()
+    return ms, pms
+
+
+def segments(run):
+    """K1's (sizes, padded sizes, weights) for the run's spec."""
+    return _gram_segments(run.engine._spec(run.pop_sizes, run.wgts))
+
+
+def phase_kernels(engine, run, batch, region_ms):
+    """K1 and K2 against their plain versions on the main path's own
+    region batch: its shifted panels, band offsets and gathered row ids
+    (the aligned layout, which the engine picks on this card)."""
+    Xm, Xu = batch.arrays[0], batch.arrays[1]
+    m0, u0 = batch.inputs[0], batch.inputs[1]
+    Wp, Mp, Up = m0.shape[0], batch.Mp, batch.Up
+    if Xm.shape[0] != Wp * Mp or Xu.shape[0] != Wp * Up:
+        raise AssertionError("the main path did not take the aligned "
+                             "layout; K2's row ids below would not be its")
+    seg = segments(run)
+    pooled = _gram_segments(dataclasses.replace(
+        engine._spec(run.pop_sizes, run.wgts), wgts=None))   # beta = 1
+    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    for label, args in (("mm", (Xm, Xm, *seg, m0, m0, Mp, Mp, True)),
+                        ("um", (Xu, Xm, *seg, u0, m0, Up, Mp, False))):
+        err, ms, pms = k1_check(label, args)
+        k1["max_abs_err"] = max(k1["max_abs_err"], err)
+        k1["ms"] += ms
+        k1["plain_ms"] += pms
+    k1_check("mm pooled", (Xm, Xm, *pooled, m0, m0, Mp, Mp, True))
+    log(f"region {region_ms:.3f} ms = K1 {k1['ms']:.3f} ms (mm + um) + "
+        f"tail {region_ms - k1['ms']:.3f} ms")
+
+    # K2 on the batch's own index vectors: both bands' row ids, -1
+    # sentinels padding each window's band
+    ms, pms = k2_check("impute batch", run._device_panel(),
+                       np.concatenate(run._aligned_rows(batch.plans)))
     return {"weighted_gram_t1": k1,
             "gather_rows": dict(max_abs_err=0.0, ms=ms, plain_ms=pms)}
 
@@ -270,6 +317,194 @@ def phase_parity(run, res, lo):
     return max_dz
 
 
+def k1_ms(run, Xa, Xb, a0, b0, na, nb, sym, reps=5):
+    """K1 alone at a path's own shapes, CUDA events."""
+    seg = segments(run)
+    return cuda_ms(lambda: gram.weighted_gram_t1(Xa, Xb, *seg, a0, b0, na,
+                                                 nb, sym), reps)
+
+
+def host_wall(fn, reps=3):
+    """Median host seconds of fn(), each call ending in a synchronize."""
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return statistics.median(walls)
+
+
+def phase_ld(run, lo, hi, reps=5):
+    """ld_region over the main path's region on the same prepared run:
+    the default "i16tri" fetch, then "f32"."""
+    windows = run._ld_windows(lo, hi, WINDOW_BP)
+    W = len(windows)
+    reset_counts()
+    t = time.perf_counter()
+    tri = run.ld_region(lo, hi, window_bp=WINDOW_BP)
+    first_s = time.perf_counter() - t
+    k1_first = gram.launches
+    f32 = run.ld_region(lo, hi, window_bp=WINDOW_BP, fetch="f32")
+    launches = read_counts()
+    log(f"LD: {W} windows; launches during ld_region x2: {launches}; "
+        f"first call (incl. K2 gather and preparation of the measured "
+        f"panel) {first_s:.3f}s")
+    if k1_first < 1 or launches["weighted_gram_t1"] - k1_first < 1:
+        raise AssertionError("K1 was not launched by every ld_region call")
+    if launches["gather_rows"] < 1:
+        raise AssertionError("K2 was not launched for the LD panel")
+    if [d["fetch"] for d in tri] != ["i16tri"] * W \
+            or [d["fetch"] for d in f32] != ["f32"] * W:
+        raise AssertionError("ld_region returned the wrong windows or modes")
+
+    out = {}
+    for fetch in ("i16tri", "f32"):
+        fn, args, Mp = run._ld_batch(windows, fetch)
+        dev_ms = cuda_ms(lambda: fn(*args), reps)
+        res = fn(*args)
+        n_bytes = res.numel() * res.element_size()
+        del res
+        wall = host_wall(lambda: run.ld_region(lo, hi, window_bp=WINDOW_BP,
+                                               fetch=fetch))
+        kms = k1_ms(run, args[0], args[0], args[3], args[3], Mp, Mp, True,
+                    reps)
+        log(f"LD {fetch}: W={W} (Wp={args[3].shape[0]}), Mp={Mp}: region "
+            f"on the card {dev_ms:.3f} ms (CUDA events, median of {reps}) "
+            f"= K1 {kms:.3f} ms + tail {dev_ms - kms:.3f} ms; ld_region "
+            f"{wall * 1e3:.1f} ms wall (median of 3) -> {W / wall:.1f} "
+            f"windows/s; {n_bytes} bytes copied to the host")
+        out[fetch] = dict(ms=dev_ms, k1_ms=kms, wall_s=wall, bytes=n_bytes)
+
+    # K1 and K2 against their plain versions on the LD batch's own inputs:
+    # the measured half, its band offsets (each window's first measured
+    # row, mostly not ROW_TILE multiples) and the half's gathered row ids
+    Xm, _, _, m_t0, _ = args
+    err, ms, pms = k1_check("LD mm", (Xm, Xm, *segments(run), m_t0, m_t0,
+                                      Mp, Mp, True))
+    checks = {"weighted_gram_t1": dict(max_abs_err=err, ms=ms, plain_ms=pms)}
+    cap = run._res[("half", 1)][0]
+    ms, pms = k2_check("LD measured half", run._device_panel(),
+                       run._half_rows(1, cap))
+    checks["gather_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+
+    # the float64 parity on the first, middle and last windows, plus the
+    # first window whose band offset is not a ROW_TILE multiple if none
+    # of those has one
+    t0 = m_t0.cpu().numpy()
+    picks = sorted({0, W // 2, W - 1})
+    if all(t0[i] % ROW_TILE == 0 for i in picks):
+        picks += [i for i in range(W) if t0[i] % ROW_TILE][:1]
+    out["i16tri"]["max_dr"] = out["f32"]["max_dr"] = 0.0
+    for i in picks:
+        m_rows = windows[i]
+        G = run.engine.store.G[np.ix_(run.g_row[m_rows], run.subj_cols)]
+        ref = ldkernels.set_diag(ldkernels.weighted_corr(
+            G, G, run.pop_sizes, run.wgts), 1.0)
+        fin = np.isfinite(ref)
+        for fetch, res, tol in (("f32", f32, DR_LD_TOL),
+                                ("i16tri", tri, DR_LD_TOL + LD_I16_MAX_ERR)):
+            c = res[i]["cormat"]
+            same_fin = bool(np.array_equal(np.isfinite(c), fin))
+            dr = float(np.abs(c[fin] - ref[fin]).max())
+            unit = bool((np.diag(c) == 1.0).all())
+            log(f"LD parity, window {i} ({len(m_rows)} SNPs, band offset "
+                f"{int(t0[i])}) vs float64 weighted_corr, {fetch}: max|dr| "
+                f"= {dr:.3e} (tol {tol:.3e}), unit diagonal={unit}, finite "
+                f"where the host is={same_fin}")
+            if not (dr <= tol and unit and same_fin):
+                raise AssertionError(f"LD {fetch} window {i} disagrees with "
+                                     f"the host path")
+            out[fetch]["max_dr"] = max(out[fetch]["max_dr"], dr)
+    return launches, out, checks
+
+
+def phase_qcat(engine, run, lo, hi, reps=5):
+    """qcat_region over the main path's windows on the same prepared run.
+    Its cached region batches are dropped first, so qcat_region builds
+    its own (aligned) batch and K2 runs on this path too."""
+    run._res.clear()
+    torch.cuda.empty_cache()
+    reset_counts()
+    t = time.perf_counter()
+    q = run.qcat_region(lo, hi, window_bp=WINDOW_BP, wing_size=WING_BP)
+    first_s = time.perf_counter() - t
+    t = time.perf_counter()
+    q = run.qcat_region(lo, hi, window_bp=WINDOW_BP, wing_size=WING_BP)
+    block_s = time.perf_counter() - t
+    launches = read_counts()
+    b = run._region_batch(lo, hi, WINDOW_BP, WING_BP)
+    Wp = b.inputs[0].shape[0]
+    slabs = Wp // win_slab(Wp)
+    log(f"qcat: {len(b.plans)} windows (Wp={Wp}, {slabs} slab(s), "
+        f"Mp={b.Mp}, Up={b.Up}); launches during qcat_region x2: "
+        f"{launches}")
+    if launches["weighted_gram_t1"] < 2 * 2 * slabs:
+        raise AssertionError("K1 was not launched twice per slab")
+    if launches["gather_rows"] < 1:
+        raise AssertionError("K2 was not launched for the qcat batch")
+
+    fn = run._kernel_fn("qcat", b.Mp, b.Up)
+    dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs), reps)
+    Xm, Xu = b.arrays[0], b.arrays[1]
+    m0, u0 = b.inputs[0], b.inputs[1]
+    kms = (k1_ms(run, Xm, Xm, m0, m0, b.Mp, b.Mp, True, reps)
+           + k1_ms(run, Xu, Xm, u0, m0, b.Up, b.Mp, False, reps))
+    wall = host_wall(lambda: run.qcat_region(lo, hi, window_bp=WINDOW_BP,
+                                             wing_size=WING_BP))
+    log(f"qcat region on the card {dev_ms:.3f} ms (CUDA events, median of "
+        f"{reps}) = K1 {kms:.3f} ms (mm + um) + tail {dev_ms - kms:.3f} ms; "
+        f"first call (incl. batch build) {first_s:.3f}s, second "
+        f"{block_s:.4f}s; qcat_region {wall * 1e3:.1f} ms wall (median of "
+        f"3) -> {len(q) / wall:.1f} tested SNPs/s ({len(q)} per pass)")
+
+    # the float64 host qcat on the first, middle and last windows: bands
+    # far from offset 0 and the last rows of the assembly's scatter
+    bp = run.table["bp"].to_numpy()
+    emit = np.zeros(len(bp), dtype=bool)
+    for a, c, _ in b.plans:
+        emit |= (bp >= a) & (bp <= c)
+    sel = np.flatnonzero(emit)
+    qm, qt, qc = (q[k].to_numpy() for k in ("qcat_m", "qcat_t",
+                                            "qcat_chisq"))
+    m0, u0 = b.inputs[0].cpu().numpy(), b.inputs[1].cpu().numpy()
+    G = run.engine.store.G
+    max_dr = 0.0
+    for i in sorted({0, len(b.plans) // 2, len(b.plans) - 1}):
+        lo0, hi0, (m_rows, u_rows, M, U, z1) = b.plans[i]
+        Gm = torch.from_numpy(G[np.ix_(run.g_row[m_rows], run.subj_cols)])
+        Gu = torch.from_numpy(G[np.ix_(run.g_row[u_rows], run.subj_cols)])
+        B11, B21 = _build_corr_blocks_fn(run.pop_sizes, run.wgts)(Gm, Gu)
+        B11.fill_diagonal_(1.0 + engine.settings.lambda_)
+        pred = np.flatnonzero((bp[m_rows] >= lo0) & (bp[m_rows] <= hi0))
+        num_eig, ref = qcat._qcat_core(B11.numpy(), B21.numpy(), z1, pred,
+                                       engine.settings)
+        dr = dt = dchi = 0.0
+        m_equal = True
+        for rows, t_ref, c_ref in ((m_rows[pred], ref["t_meas"],
+                                    ref["chisq_meas"]),
+                                   (u_rows, ref["t_unmeas"],
+                                    ref["chisq_unmeas"])):
+            pos = np.searchsorted(sel, rows)
+            m_equal &= bool((qm[pos] == num_eig).all())
+            r_dev = qt[pos] / np.sqrt(num_eig - 3.0)
+            r_ref = t_ref / np.sqrt(num_eig - 3.0)
+            dr = max(dr, float(np.abs(r_dev - r_ref).max()))
+            dt = max(dt, float(np.abs(qt[pos] - t_ref).max()))
+            dchi = max(dchi, float(np.abs(qc[pos] - c_ref).max()))
+        log(f"qcat parity, window {i} ({M} measured, {len(pred)} tested "
+            f"measured, {U} unmeasured; band offsets {int(m0[i])}, "
+            f"{int(u0[i])}) vs float64 host qcat: qcat_m equal={m_equal} "
+            f"(num_eig {num_eig}), max|dr| = {dr:.3e} (tol "
+            f"{DR_QCAT_TOL:g}), max|dt| = {dt:.3e}, max|dchisq| = "
+            f"{dchi:.3e}")
+        if not (m_equal and dr <= DR_QCAT_TOL):
+            raise AssertionError(f"qcat window {i} disagrees with the host "
+                                 f"path")
+        max_dr = max(max_dr, dr)
+    return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall, max_dr=max_dr)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--snps", type=int, default=64_000,
@@ -279,11 +514,13 @@ def main():
 
     dev, name = phase_device()
     phase_build()
-    engine, run, res, lo, launches, batch, region_ms = phase_main(
+    engine, run, res, lo, hi, launches, batch, region_ms = phase_main(
         dev, args.snps)
     kernels = phase_kernels(engine, run, batch, region_ms)
     del batch
     phase_parity(run, res, lo)
+    ld_launches, _, ld_checks = phase_ld(run, lo, hi)
+    qcat_launches, _ = phase_qcat(engine, run, lo, hi)
 
     routes = {
         "weighted_gram_t1": ("gauss_tpu_torch/csrc/gram.cu",
@@ -295,9 +532,17 @@ def main():
     for kname, (src, replaces) in routes.items():
         if not os.path.exists(os.path.join(HERE, src)):
             raise AssertionError(f"missing kernel source {src}")
+        # ms / plain_ms: the impute batch's shapes; the LD batch's beside
+        checked = {"impute": kernels[kname], "ld": ld_checks[kname]}
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
-                     **kernels[kname]})
+                     "launches_by_path": {"impute": launches[kname],
+                                          "ld": ld_launches[kname],
+                                          "qcat": qcat_launches[kname]},
+                     **kernels[kname],
+                     "max_abs_err": max(c["max_abs_err"]
+                                        for c in checked.values()),
+                     "checked_by_path": checked})
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

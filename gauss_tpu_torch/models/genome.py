@@ -1,14 +1,16 @@
-"""Genome-scale windowed imputation engine (dist/distmix).
+"""Genome-scale windowed engine: imputation (dist/distmix), LD
+(computeLD) and causality tests (qcat/qcatmix).
 
-The reference scales to a genome by calling dist/distmix once per
+The reference scales to a genome by calling each analysis once per
 window, re-reading the panel every call (SURVEY.md section 2.3).  Here
 the panel region is decoded once (PanelStore), the selected populations
 are uploaded to the engine's device once, and a region's windows run as
-one batch through the resident region kernel
-(``ops/window_kernel.build_resident_region_kernel``: K2 row gather at
-preparation, two K1 Grams per region, f32 solves).  A float64 host path
-(``PreparedRun.impute_window``) reproduces the reference arithmetic and
-is the parity anchor.
+one batch through a resident region kernel (``ops/window_kernel``: K2
+row gathers at preparation, K1 Grams per slab of windows, f32 solves):
+``impute_region``, ``ld_region`` / ``ld_window`` and ``qcat_region``.
+A float64 host path (``PreparedRun.impute_window``, and the per-call
+``models/dist``, ``models/ld``, ``models/qcat``) reproduces the
+reference arithmetic and is the parity anchor.
 """
 
 from __future__ import annotations
@@ -16,22 +18,30 @@ from __future__ import annotations
 import dataclasses
 import os
 from collections import deque
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import pandas as pd
 import torch
+from torch.profiler import record_function
 
 from ..config import DEFAULT_SETTINGS, PanelFiles, Settings
 from ..core import linalg, stats, variants
 from ..io import readers
 from ..io.panel import PanelReader, read_panel_index
 from ..ops.gram import K_CHUNK, ROW_TILE
-from ..ops.window_kernel import (WindowKernelSpec,
+from ..ops.window_kernel import (LD_FETCH, WindowKernelSpec, _dequant_i16,
+                                 build_resident_ld_kernel,
+                                 build_resident_qcat_kernel,
                                  build_resident_region_kernel,
                                  pad_pop_segments, prepare_resident_panel,
-                                 win_slab)
-from ..utils.special import pnorm_two_sided
+                                 unpack_tri_i16, win_slab)
+from ..utils.special import pchisq_upper, pnorm_two_sided
+
+#: the function that builds each resident kernel, by the engine's name
+_BUILDERS = {"impute": build_resident_region_kernel,
+             "qcat": build_resident_qcat_kernel,
+             "ld": build_resident_ld_kernel}
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +119,7 @@ class WindowResult:
 
 
 class GenomeEngine:
-    """Windowed distmix/dist over a PanelStore on one explicit device."""
+    """Windowed analyses over a PanelStore on one explicit device."""
 
     def __init__(self, store: PanelStore, device,
                  settings: Settings = DEFAULT_SETTINGS,
@@ -117,7 +127,8 @@ class GenomeEngine:
         """``device``: where the panel and the region kernel live (a
         ``torch.device`` or its name); the engine never picks one.
         ``device_linalg``: impute_region runs the batched f32 region
-        kernel there; otherwise it loops the float64 host path."""
+        kernel there; otherwise it loops the float64 host path.  LD and
+        qcat regions always run their resident kernels there."""
         # The region tail's f32 matmuls and solves must run in full f32,
         # as the reference tail runs at Precision.HIGHEST: TF32 keeps ~3
         # decimal digits and would cost the covariances their last ones.
@@ -196,16 +207,34 @@ class GenomeEngine:
     def _spec(self, sizes, wgts) -> WindowKernelSpec:
         return WindowKernelSpec(
             pop_sizes=sizes, pop_sizes_padded=self._padded_sizes(sizes),
-            wgts=wgts, lam=self.settings.lambda_)
+            wgts=wgts, lam=self.settings.lambda_,
+            min_abs_eig=self.settings.min_abs_eig,
+            eig_cutoff=self.settings.eig_cutoff)
 
-    def _resident_fn(self, Mp: int, Up: int, sizes, wgts):
-        key = ("resident", Mp, Up, sizes, wgts)
+    def _kernel_fn(self, kind: str, sizes, wgts, *shape):
+        """The resident kernel ``kind`` ("impute", "ld", "qcat") built for
+        ``shape`` ((Mp, Up), or (Mp, fetch) for LD), cached."""
+        key = (kind, sizes, wgts) + shape
         fn = self._fns.get(key)
         if fn is None:
-            fn = build_resident_region_kernel(self._spec(sizes, wgts),
-                                              Mp, Up)
+            fn = _BUILDERS[kind](self._spec(sizes, wgts), *shape)
             self._fns[key] = fn
         return fn
+
+
+@dataclasses.dataclass
+class RegionBatch:
+    """Device inputs of one region's windows (see
+    PreparedRun._region_batch).  Window w's bands start at row
+    m_t0[w] / u_t0[w] of the arrays' panels: its first measured /
+    unmeasured row."""
+
+    plans: list            # (lo, hi, window plan) per window
+    inputs: tuple          # (m_t0, u_t0, Z1, m_mask, u_mask), W padded
+    compact: tuple         # (wi, ci): the real unmeasured rows, in order
+    arrays: tuple          # (Xm, Xu, Spm, Spu, Mum, Muu, Vu)
+    Mp: int
+    Up: int
 
 
 @dataclasses.dataclass
@@ -313,35 +342,49 @@ class PreparedRun:
         return torch.from_numpy(rows.astype(np.int32)).to(
             self.engine.device)
 
-    def _resident_arrays(self, Mp: int, Up: int):
-        """Shared layout: bp-sorted measured/unmeasured panels + per-row
-        statistics, one pair for every region of this run.  Cached;
-        rebuilt only if a larger band than cached is requested."""
-        cached = self._res.get("caps")
-        if cached is not None and cached[0] >= Mp and cached[1] >= Up:
-            return self._res["arrays"]
+    def _resident_half(self, typ_val: int, cap: int):
+        """Shared layout, one half: the bp-sorted measured (typ_val 1) or
+        unmeasured (0) panel rows, gathered (K2), shifted, with per-row
+        statistics (prepare_resident_panel), plus ``cap`` zero rows so
+        every band of up to ``cap`` rows stays inside.  Cached per half;
+        rebuilt only if a larger cap than cached is requested, so LD,
+        which reads only the measured half, never builds the other."""
+        key = ("half", typ_val)
+        cached = self._res.get(key)
+        if cached is not None and cached[0] >= cap:
+            return cached[1]
         if cached is not None:       # grow monotonically: alternating
-            Mp = max(Mp, cached[0])  # callers must not thrash rebuilds
-            Up = max(Up, cached[1])
-        typ = self.table["type"].to_numpy()
-        spec = self.engine._spec(self.pop_sizes, self.wgts)
-        G_dev = self._device_panel()
+            cap = max(cap, cached[0])  # callers must not thrash rebuilds
+        rows = self._half_rows(typ_val, cap)
+        half = prepare_resident_panel(
+            self._device_panel(), self._upload_rows(rows), None,
+            self.engine._spec(self.pop_sizes, self.wgts))
+        self._res[key] = (cap, half)
+        return half
 
-        def build(rows_tbl, cap):
-            n = len(rows_tbl)
-            rows = np.zeros(_round_up(max(n, 1), ROW_TILE) + cap,
-                            dtype=np.int32)
-            rows[:n] = self.g_row[rows_tbl]
-            return prepare_resident_panel(G_dev, self._upload_rows(rows), n,
-                                          spec)
-        Xm, Spm, Mum, _ = build(np.flatnonzero(typ == 1), Mp)
-        Xu, Spu, Muu, Vu = build(np.flatnonzero(typ == 0), Up)
-        # update in place: self._res also caches ("batch", ...) /
-        # ("asm", ...) entries that must survive a cap-growing rebuild
-        # (already-built batches hold the OLD arrays, still valid for
-        # their own bands)
-        self._res.update({"arrays": (Xm, Xu, Spm, Spu, Mum, Muu, Vu),
-                          "caps": (Mp, Up)})
+    def _half_rows(self, typ_val: int, cap: int) -> np.ndarray:
+        """Panel row ids one shared-layout half gathers (K2's index
+        vector): the half's rows in table order, then -1 sentinels up to a
+        ROW_TILE multiple plus ``cap``."""
+        rows_tbl = np.flatnonzero(self.table["type"].to_numpy() == typ_val)
+        n = len(rows_tbl)
+        rows = np.full(_round_up(max(n, 1), ROW_TILE) + cap, -1,
+                       dtype=np.int32)
+        rows[:n] = self.g_row[rows_tbl]
+        return rows
+
+    def _resident_arrays(self, Mp: int, Up: int):
+        """Shared layout: both halves (see _resident_half), one pair for
+        every region of this run, as (Xm, Xu, Spm, Spu, Mum, Muu, Vu).
+        The tuple is kept as self._res["arrays"] and stays the same object
+        until a half is rebuilt (already-built batches hold the OLD
+        arrays, still valid for their own bands)."""
+        Xm, Spm, Mum, _ = self._resident_half(1, Mp)
+        Xu, Spu, Muu, Vu = self._resident_half(0, Up)
+        arrays = (Xm, Xu, Spm, Spu, Mum, Muu, Vu)
+        old = self._res.get("arrays")
+        if old is None or any(a is not b for a, b in zip(arrays, old)):
+            self._res["arrays"] = arrays
         return self._res["arrays"]
 
     def _window_batch(self, plans, Mp: int, Up: int, m_t0, u_t0):
@@ -431,11 +474,11 @@ class PreparedRun:
         return inputs, (Xm, Xu, Spm, Spu, Mum, Muu, Vu), Mp, Up
 
     def _region_batch(self, start_bp: int, end_bp: int, window_bp: int,
-                      wing_size: int):
-        """(plans, inputs, arrays, fn) for one region, or None when no
-        window clears the minimum counts; fn(*arrays, *inputs) -> [2, N]
-        and each plans entry is (lo, hi, window plan).  Every window's
-        rows start at its band's first row, in both layouts.
+                      wing_size: int) -> Optional[RegionBatch]:
+        """The RegionBatch of one region (impute_region's and
+        qcat_region's windows), or None when no window clears the minimum
+        counts.  Every window's rows start at its band's first row, in
+        both layouts.
 
         The table is immutable after prepare, so the batch is cached per
         (start, end, window_bp, wing): repeated region calls skip the
@@ -455,7 +498,7 @@ class PreparedRun:
         # identity test after a cap-growing rebuild -- evicting it too
         # costs only a host-side rebuild, never device memory.
         def _aligned(b):
-            return b is not None and b[2] is not self._res.get("arrays")
+            return b is not None and b.arrays is not self._res.get("arrays")
         if _aligned(out):
             for k in [k for k in self._res
                       if isinstance(k, tuple) and k[0] == "batch"
@@ -489,9 +532,8 @@ class PreparedRun:
         else:
             inputs, Mp, Up = self._resident_batch_from_plans(plans)
             arrays = self._resident_arrays(Mp, Up)
-        fn = self.engine._resident_fn(Mp, Up, self.pop_sizes, self.wgts)
         # compaction indices, window by window (_region_assembly's order):
-        # the kernel keeps only REAL unmeasured rows
+        # the impute kernel keeps only REAL unmeasured rows
         wi = np.concatenate([np.full(p[2][3], i, dtype=np.int64)
                              for i, p in enumerate(plans)])
         ci = np.concatenate([np.arange(p[2][3], dtype=np.int64)
@@ -499,9 +541,13 @@ class PreparedRun:
         # upload the pass-invariant batch inputs once: repeated region
         # calls then launch with no host->device traffic
         dev = self.engine.device
-        inputs = tuple(torch.from_numpy(a).to(dev)
-                       for a in inputs + (wi, ci))
-        return plans, inputs, arrays, fn
+        inputs = tuple(torch.from_numpy(a).to(dev) for a in inputs)
+        compact = tuple(torch.from_numpy(a).to(dev) for a in (wi, ci))
+        return RegionBatch(plans, inputs, compact, arrays, Mp, Up)
+
+    def _kernel_fn(self, kind: str, *shape):
+        return self.engine._kernel_fn(kind, self.pop_sizes, self.wgts,
+                                      *shape)
 
     def _region_assembly(self, plans):
         """Pass-invariant output skeleton for impute_region: emitted row
@@ -548,24 +594,15 @@ class PreparedRun:
         assembly overlaps region N+1's kernels (impute_regions)."""
         if not self.engine.device_linalg:
             raise ValueError("impute_region_async requires device_linalg")
-        batch = self._region_batch(start_bp, end_bp, window_bp, wing_size)
-        if batch is None:
+        b = self._region_batch(start_bp, end_bp, window_bp, wing_size)
+        if b is None:
             return RegionHandle(None, None, None)
-        plans, inputs, arrays, fn = batch
-        out = fn(*arrays, *inputs)
-        ready = None
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            # the copy runs on the stream of out's device, which need not
-            # be the current device: record the event there
-            ready = torch.cuda.Event()
-            ready.record(torch.cuda.current_stream(out.device))
-            out = host
+        fn = self._kernel_fn("impute", b.Mp, b.Up)
+        out, ready = _copy_to_host(fn(*b.arrays, *b.inputs, *b.compact))
         ck = ("asm", (start_bp, end_bp, window_bp, wing_size))
         asm = self._res.get(ck)
         if asm is None:
-            asm = self._region_assembly(plans)
+            asm = self._region_assembly(b.plans)
             self._res[ck] = asm
         return RegionHandle(out, ready, asm)
 
@@ -608,6 +645,215 @@ class PreparedRun:
         if not frames:
             return pd.DataFrame()
         return pd.concat(frames, ignore_index=True)
+
+    # -- LD (computeLD) over the resident measured panel ---------------------
+    def _ld_windows(self, start_bp: int, end_bp: int,
+                    window_bp: int) -> List[np.ndarray]:
+        """Measured-SNP row lists of consecutive LD windows (computeLD
+        tiling: wing = 0, empty windows skipped)."""
+        t = self.table
+        bp = t["bp"].to_numpy()
+        typ = t["type"].to_numpy()
+        windows = []
+        pos = start_bp
+        while pos <= end_bp:
+            hi = min(pos + window_bp - 1, end_bp)
+            m_rows = np.flatnonzero((typ == 1) & (bp >= pos) & (bp <= hi))
+            if len(m_rows):
+                windows.append(m_rows)
+            pos = hi + 1
+        return windows
+
+    def _ld_batch(self, windows, fetch: str):
+        """(fn, args, Mp) of one resident LD launch over ``windows``:
+        fn(*args) -> the packed [Wp, ...] output.  Window w's band is the
+        measured shared-layout panel from its first row; Mp is the
+        largest window's row count rounded up to ROW_TILE and W is padded
+        to a slab multiple."""
+        m_all = np.flatnonzero(self.table["type"].to_numpy() == 1)
+        W = len(windows)
+        Wp = _round_up(W, win_slab(W))
+        Mp = _round_up(max(len(r) for r in windows), ROW_TILE)
+        m_t0 = np.zeros(Wp, dtype=np.int32)
+        m_mask = np.zeros((Wp, Mp), dtype=np.float32)
+        for i, m_rows in enumerate(windows):
+            pos = int(np.searchsorted(m_all, m_rows[0]))
+            if m_all[pos + len(m_rows) - 1] != m_rows[-1]:
+                raise RuntimeError("window rows are not contiguous in the "
+                                   "bp-sorted table")
+            m_t0[i] = pos
+            m_mask[i, :len(m_rows)] = 1.0
+        m_t0[W:] = m_t0[W - 1]         # padding windows: any valid band
+        Xm, Spm, Mum, _ = self._resident_half(1, Mp)
+        dev = self.engine.device
+        args = (Xm, Spm, Mum, torch.from_numpy(m_t0).to(dev),
+                torch.from_numpy(m_mask).to(dev))
+        return self._kernel_fn("ld", Mp, fetch), args, Mp
+
+    def _ld_dicts(self, windows, fetch: str) -> List[Dict]:
+        """computeLD output dicts of ``windows``: one resident LD launch
+        and one copy of its whole output to the host."""
+        if self.wgts is None:
+            # computeLD is the ancestry-WEIGHTED estimator only
+            # (src/computeLD.cpp:26-166 takes pop_wgt_df; the reference
+            # has no pooled variant)
+            raise ValueError("ld_window / ld_region require population "
+                             "weights (prepare_mix)")
+        if fetch not in LD_FETCH:
+            raise ValueError(f"fetch must be one of {LD_FETCH}, got "
+                             f"{fetch!r}")
+        if not windows:
+            return []
+        # host spans (torch.profiler; profile_regions.py reads them)
+        with record_function("ld.batch"):
+            fn, args, Mp = self._ld_batch(windows, fetch)
+        with record_function("ld.device"):     # launch, copy, wait
+            out, ready = _copy_to_host(fn(*args))
+            if ready is not None:
+                ready.synchronize()
+        raw_all = out.numpy()
+        with record_function("ld.unpack"):
+            cormats = []
+            for m_rows, raw in zip(windows, raw_all):
+                M = len(m_rows)
+                if fetch == "i16tri":
+                    cormats.append(unpack_tri_i16(raw, Mp, M))
+                elif fetch == "i16full":
+                    cormats.append(_dequant_i16(raw[:M, :M]))
+                else:
+                    cormats.append(raw[:M, :M].astype(np.float64))
+        with record_function("ld.snplists"):
+            t = self.table
+            res = []
+            for m_rows, cormat in zip(windows, cormats):
+                tt = t.iloc[m_rows]
+                res.append({
+                    "snplist": pd.DataFrame({
+                        "rsid": tt["rsid"].to_numpy(),
+                        "chr": tt["chr"].to_numpy(),
+                        "bp": tt["bp"].to_numpy(),
+                        "a1": tt["a1"].to_numpy(),
+                        "a2": tt["a2"].to_numpy(),
+                        "af1mix": tt["af1mix"].to_numpy(),
+                        "z": tt["z"].to_numpy()}),
+                    "cormat": cormat,
+                    "fetch": fetch,
+                })
+        return res
+
+    def ld_window(self, start_bp: int, end_bp: int,
+                  fetch: str = "f32") -> Optional[Dict]:
+        """Ancestry-weighted LD matrix of the window's MEASURED SNPs
+        (computeLD semantics: wing = 0, unit diagonal, no ridge;
+        src/computeLD.cpp:26-166), computed on the engine's device by the
+        resident LD kernel as a one-window region.  Returns
+        {"snplist": DataFrame, "cormat": float64 [n, n], "fetch": fetch},
+        or None when the window has no measured SNP.
+
+        ``fetch``: "f32" (default) copies the f32 matrix; "i16tri" packed
+        int16 lower triangles, |dr| <= LD_I16_MAX_ERR; "i16full" the full
+        int16 matrix.  The dict records the mode under "fetch"."""
+        return next(iter(self._ld_dicts(
+            self._ld_windows(start_bp, end_bp, end_bp - start_bp + 1),
+            fetch)), None)
+
+    def ld_region(self, start_bp: int, end_bp: int,
+                  window_bp: int = 1_000_000,
+                  fetch: str = "i16tri") -> List[Dict]:
+        """ld_window over consecutive windows of ``window_bp`` (those
+        without a measured SNP skipped), all in one resident LD launch
+        per slab and one copy to the host.
+
+        ``fetch`` defaults to "i16tri": packed int16 triangles, 1/8 the
+        bytes of f32 with |dr| <= LD_I16_MAX_ERR ~ 1.5e-5, below the f32
+        statistics noise at 33k subjects; every dict records the mode
+        under "fetch".  Pass fetch="f32" for the f32 matrices; the
+        per-call compute_ld stays float64."""
+        with record_function("ld.windows"):
+            windows = self._ld_windows(start_bp, end_bp, window_bp)
+        return self._ld_dicts(windows, fetch)
+
+    # -- qcat over the region batch ------------------------------------------
+    def qcat_region(self, start_bp: int, end_bp: int,
+                    window_bp: int = 1_000_000,
+                    wing_size: int = 500_000) -> pd.DataFrame:
+        """QCAT causality tests over consecutive windows, on the engine's
+        device in one resident launch per slab of windows (qcatmix
+        semantics when prepared with weights, qcat otherwise; reference
+        src/qcat.cpp:134-262).  The windows and their batch are
+        impute_region's.  NOTE the reference defaults differ: qcat's
+        af1_cutoff is 0.05 (src/qcat.cpp:52-56) but qcatmix's is 0.01
+        (src/qcatmix.cpp:61-64) -- pass the matching value to
+        prepare_homog / prepare_mix.  Raises ValueError when lambda <=
+        eig_cutoff (the device path counts every measured SNP as a
+        principal component, which only holds above the cutoff)."""
+        with record_function("qcat.batch"):
+            b = self._region_batch(start_bp, end_bp, window_bp, wing_size)
+        if b is None:
+            return pd.DataFrame()
+        with record_function("qcat.device"):   # launch, copy, wait
+            fn = self._kernel_fn("qcat", b.Mp, b.Up)
+            out, ready = _copy_to_host(fn(*b.arrays, *b.inputs))
+            if ready is not None:
+                ready.synchronize()
+        raw = out.numpy()
+        Mp, Up = b.Mp, b.Up
+        t_m, chi_m = raw[:, :Mp], raw[:, Mp:2 * Mp]
+        t_u, chi_u = raw[:, 2 * Mp:2 * Mp + Up], raw[:, 2 * Mp + Up:-1]
+        n_eig = raw[:, -1]
+
+        with record_function("qcat.scatter"):
+            t = self.table
+            bp = t["bp"].to_numpy()
+            qm = np.zeros(len(t), dtype=np.int64)
+            qt = np.zeros(len(t))
+            qc = np.zeros(len(t))
+            emit = np.zeros(len(t), dtype=bool)
+            for i, (lo, hi, plan) in enumerate(b.plans):
+                m_rows, u_rows, M, U, _ = plan
+                pm = (bp[m_rows] >= lo) & (bp[m_rows] <= hi)
+                rows = m_rows[pm]
+                qm[rows] = int(n_eig[i])
+                qt[rows] = t_m[i, :M][pm].astype(np.float64)
+                qc[rows] = chi_m[i, :M][pm].astype(np.float64)
+                qm[u_rows] = int(n_eig[i])
+                qt[u_rows] = t_u[i, :U].astype(np.float64)
+                qc[u_rows] = chi_u[i, :U].astype(np.float64)
+                emit |= (bp >= lo) & (bp <= hi)
+        with record_function("qcat.frame"):
+            tt = t[emit]
+            sel = np.flatnonzero(emit)
+            af_col = "af1mix" if self.wgts is not None else "af1ref"
+            return pd.DataFrame({
+                "rsid": tt["rsid"].to_numpy(),
+                "chr": tt["chr"].to_numpy(),
+                "bp": tt["bp"].to_numpy(),
+                "a1": tt["a1"].to_numpy(),
+                "a2": tt["a2"].to_numpy(),
+                af_col: tt[af_col].to_numpy(),
+                "z": tt["z"].to_numpy(),
+                "qcat_m": qm[sel],
+                "qcat_t": qt[sel],
+                "qcat_chisq": qc[sel],
+                "qcat_pval": pchisq_upper(qc[sel], 1),
+                "type": tt["type"].to_numpy(),
+            })
+
+
+def _copy_to_host(out: torch.Tensor):
+    """(host tensor, ready event): one copy of a kernel's whole output
+    into pinned host memory, queued on the stream of out's device without
+    waiting for it; ``ready`` fires when the copy has landed (None when
+    out is on the CPU already)."""
+    if not out.is_cuda:
+        return out, None
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    # out's device need not be the current device: record the event on
+    # its stream
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(out.device))
+    return host, ready
 
 
 class RegionHandle:

@@ -119,7 +119,7 @@ def test_block_builder_matches(panel, weighted):
         G, Gp, sizes, padded, weighted)
     a11, a21 = jwk._resident_block_builder(js, MP, UP)(
         *j_in, jnp.asarray(m_mask), jnp.asarray(u_mask))
-    b11, b21 = twk._resident_block_builder(ts, MP, UP)(
+    b11, b21 = twk._ResidentBlocks(ts, MP, UP)(
         *t_in, torch.from_numpy(m_mask), torch.from_numpy(u_mask))
     assert b11.shape == (W, MP, MP) and b21.shape == (W, UP, MP)
     assert b11.dtype == b21.dtype == torch.float32
