@@ -8,7 +8,9 @@ Phases (each prints its evidence; any failure exits non-zero):
 
 1. device  -- needs torch.cuda; prints the card and its power limit.
 2. build   -- compiles the CUDA kernels (K1 gram, K2 gather) from
-              gauss_tpu_torch/csrc with nvcc for sm_90a.
+              gauss_tpu_torch/csrc with nvcc for sm_90a; prints ptxas's
+              registers, spills and shared memory per kernel and K1's
+              dynamic shared memory.
 3. main    -- the bench workload: a 33KG-shaped panel (29 populations,
               33,153 subjects) of --snps SNPs at 1,500 SNPs/Mb, 40%
               measured, 1 Mb windows with 500 kb wings, imputed by
@@ -17,7 +19,10 @@ Phases (each prints its evidence; any failure exits non-zero):
               launch counts must rise during it.
 4. kernels -- each kernel against its plain PyTorch version on the card,
               on the main path's own region batch (K1 rel err <= 1e-6,
-              K2 bit-equal), timed with CUDA events.
+              K2 bit-equal), timed with CUDA events beside its bound (the
+              larger of its operations over the int8 peak and its bytes
+              over the HBM rate) and one PyTorch call doing the same
+              work (torch._int_mm for K1, torch.index_select for K2).
 5. parity  -- the first window against the port's float64 host path:
               max|dZ| <= 1e-4 on imputed rows, measured rows bit-equal.
 6. LD      -- PreparedRun.ld_region over the same region (1 Mb windows,
@@ -27,10 +32,13 @@ Phases (each prints its evidence; any failure exits non-zero):
               on the LD batch's own inputs (band offsets at each window's
               first measured row); the first, middle and last windows
               against the float64 ldkernels.weighted_corr (max|dr| <=
-              2e-4, plus LD_I16_MAX_ERR for i16tri; unit diagonal exact).
+              2e-4, plus LD_I16_MAX_ERR for i16tri; unit diagonal exact);
+              K1 there with its bound and yardstick as in phase 4.
 7. qcat    -- PreparedRun.qcat_region over the same region with impute's
               windows (its region batch rebuilt, so K2 runs too): K1 twice
-              per slab of windows; the first, middle and last windows
+              per slab of windows, checked against its plain version at
+              both shapes with its bound and yardstick; the first, middle
+              and last windows
               against the float64 host qcat (_qcat_core on
               _build_corr_blocks_fn's blocks): qcat_m equal, max|dr| <=
               1e-4 on r = t / sqrt(m - 3).
@@ -75,6 +83,10 @@ K1_REL_TOL = 1e-6        # f32 folds of exact int32 segment sums
 DZ_TOL = 1e-4            # f32 region solves vs the float64 host path
 DR_LD_TOL = 2e-4         # f32 LD vs the float64 weighted correlations
 DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
+WARM_S = 0.05            # warm-up seconds before each timing
+# published peaks of one H100 SXM (dense int8 tensor-core rate, HBM3 rate)
+INT8_OPS_PER_S = 1979e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def log(msg):
@@ -92,19 +104,26 @@ def read_counts():
 
 
 def cuda_ms(fn, reps):
-    """Median milliseconds of fn() on the card, one CUDA event pair per
-    call after a warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
+    """Median milliseconds of fn() on the card: one CUDA event pair per
+    call, the calls enqueued back to back and one synchronize at the end,
+    so that a call's host-side work overlaps the device work of the call
+    before it.  Warm-up calls run first for at least WARM_S seconds: a
+    kernel's first calls after other work can run slower than its
+    steady state."""
+    t = time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        if time.perf_counter() - t >= WARM_S:
+            break
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in events:
         a.record()
         fn()
         b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
 def phase_device():
@@ -132,8 +151,11 @@ def phase_build():
         f" with nvcc {' '.join(_build.NVCC_FLAGS)} in "
         f"{_build.build_seconds:.2f}s (load incl. {time.perf_counter()-t:.2f}s)")
     for line in _build.build_log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if any(k in line for k in ("registers", "Compiling entry", "spill",
+                                   "smem", "wgmma", "Performance")):
             log(f"  ptxas: {line.strip()}")
+    log(f"K1 dynamic shared memory per CTA: "
+        f"{_build.library().gauss_weighted_gram_smem()} bytes")
 
 
 def phase_main(dev, n_snps):
@@ -202,10 +224,41 @@ def phase_main(dev, n_snps):
     return engine, run, res, lo, hi, launches, batch, region_ms
 
 
+def bound(ops, n_bytes):
+    """(ms, "operations" or "bytes"): the least time the card could take,
+    the larger of ops at the int8 peak and n_bytes at the HBM rate."""
+    ops_ms = ops / INT8_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def k1_bound(W, nx, ny, s_real, sym):
+    """K1's bound on the work its inputs need: real subject columns, the
+    lower triangle (diagonal included) in sym mode, each band read once,
+    the output entries written once as f32."""
+    entries = nx * (nx + 1) // 2 if sym else nx * ny
+    return bound(2.0 * W * entries * s_real,
+                 W * (nx if sym else nx + ny) * s_real + 4.0 * W * entries)
+
+
+def k1_library_ms(A, B, a0, b0, nx, ny, reps):
+    """torch._int_mm over the same int8 products in one call: every
+    window's X band [W * nx, S] against the first window's Y band (the
+    full square in sym mode: twice the triangle's work)."""
+    Xb = gram._band(A, a0, nx).reshape(-1, A.shape[1])
+    Yb = gram._band(B, b0[:1], ny)[0]
+    ms = cuda_ms(lambda: torch._int_mm(Xb, Yb.t()), reps)
+    del Xb, Yb
+    torch.cuda.empty_cache()
+    return ms
+
+
 def k1_check(label, args, reps=5, plain_reps=2):
     """K1 against its plain version on one launch's arguments (a sym
-    launch's lower triangles mirrored on both sides), then both timed:
-    (max abs err, kernel ms, plain ms).  Fails above K1_REL_TOL."""
+    launch's lower triangles mirrored on both sides), then timed beside
+    its plain version, its bound and its torch._int_mm yardstick.  Fails
+    above K1_REL_TOL."""
     got = gram.weighted_gram_t1(*args)
     ref = gram.weighted_gram_t1_plain(*args)
     if args[-1]:
@@ -216,25 +269,43 @@ def k1_check(label, args, reps=5, plain_reps=2):
     del got, ref
     ms = cuda_ms(lambda: gram.weighted_gram_t1(*args), reps)
     pms = cuda_ms(lambda: gram.weighted_gram_t1_plain(*args), plain_reps)
-    offs = args[5].cpu().numpy()
-    Wp, nx, ny, S = offs.shape[0], args[7], args[8], sum(args[3])
-    log(f"K1 {label}: W={Wp} nx={nx} ny={ny} S={S} segments={len(args[3])}"
-        f", {int((offs % ROW_TILE != 0).sum())} of {Wp} x offsets not a "
+    A, B, sizes, _, _, a0, b0, nx, ny, sym = args
+    offs = a0.cpu().numpy()
+    Wp, S = offs.shape[0], A.shape[1]
+    b_ms, b_by = k1_bound(Wp, nx, ny, sum(sizes), sym)
+    lib = k1_library_ms(A, B, a0, b0, nx, ny, reps)
+    log(f"K1 {label}: W={Wp} nx={nx} ny={ny} S={S} ({sum(sizes)} real) "
+        f"segments={len(sizes)}{' sym' if sym else ''}, "
+        f"{int((offs % ROW_TILE != 0).sum())} of {Wp} x offsets not a "
         f"multiple of {ROW_TILE}: max abs err {err:.3e}, rel {rel:.3e} "
-        f"(tol {K1_REL_TOL:g}); kernel {ms:.3f} ms "
-        f"({2.0 * Wp * nx * ny * S / ms / 1e9:.1f} int TOPS counting the "
-        f"full tile grid), plain {pms:.3f} ms")
+        f"(tol {K1_REL_TOL:g}); kernel {ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by}) = {b_ms / ms:.1%} of bound, torch._int_mm {lib:.3f} ms "
+        f"({'full square, 2x the triangle' if sym else 'same products'}),"
+        f" plain {pms:.3f} ms")
     if not rel <= K1_REL_TOL:
         raise AssertionError(f"K1 {label} disagrees with its plain "
                              f"version: rel {rel:.3e}")
     torch.cuda.empty_cache()
-    return err, ms, pms
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def sum_checks(checks):
+    """One row for several launches: times summed, the largest error, the
+    bound kind of the largest bound."""
+    out = dict(max_abs_err=max(c["max_abs_err"] for c in checks))
+    for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
+        out[k] = sum(c[k] for c in checks)
+    out["bound_by"] = max(checks, key=lambda c: c["bound_ms"])["bound_by"]
+    return out
 
 
 def k2_check(label, G, rows, reps=5):
     """K2 against its plain version on one gather's row ids (-1 =
-    sentinel), then both timed: (kernel ms, plain ms).  Fails unless
-    bit-equal."""
+    sentinel), then timed beside its plain version, its bound (each
+    distinct panel row read once, every output row written once) and
+    torch.index_select on the clamped ids (the same bytes; sentinel rows
+    not zeroed).  Fails unless bit-equal."""
     idx = torch.from_numpy(rows).to(G.device)
     got = gather.gather_rows(G, idx)
     ref = gather.gather_rows_plain(G, idx)
@@ -242,15 +313,24 @@ def k2_check(label, G, rows, reps=5):
     del got, ref
     ms = cuda_ms(lambda: gather.gather_rows(G, idx), reps)
     pms = cuda_ms(lambda: gather.gather_rows_plain(G, idx), reps)
+    clamped = idx.clamp(min=0)
+    lib = cuda_ms(lambda: torch.index_select(G, 0, clamped), reps)
     N, S = idx.shape[0], G.shape[1]
-    log(f"K2 {label}: R={G.shape[0]} S={S} N={N} ({int((idx < 0).sum())} "
-        f"sentinels): bit-equal={equal}; kernel {ms:.3f} ms "
-        f"({2.0 * N * S / ms / 1e6:.0f} GB/s read+write), plain "
-        f"{pms:.3f} ms")
+    n_real = int((idx >= 0).sum())
+    n_distinct = int(torch.unique(idx[idx >= 0]).numel())
+    b_ms, b_by = bound(0.0, (n_distinct + N) * S)
+    log(f"K2 {label}: R={G.shape[0]} S={S} N={N} ({N - n_real} "
+        f"sentinels, {n_distinct} distinct rows): bit-equal={equal}; "
+        f"kernel {ms:.3f} ms "
+        f"({2.0 * N * S / ms / 1e6:.0f} GB/s read+write), bound "
+        f"{b_ms:.3f} ms ({b_by}) = {b_ms / ms:.1%} of bound, "
+        f"torch.index_select {lib:.3f} ms, plain {pms:.3f} ms")
     if not equal:
         raise AssertionError(f"K2 {label} differs from its plain version")
+    del clamped
     torch.cuda.empty_cache()
-    return ms, pms
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
 
 
 def segments(run):
@@ -271,23 +351,17 @@ def phase_kernels(engine, run, batch, region_ms):
     seg = segments(run)
     pooled = _gram_segments(dataclasses.replace(
         engine._spec(run.pop_sizes, run.wgts), wgts=None))   # beta = 1
-    k1 = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    for label, args in (("mm", (Xm, Xm, *seg, m0, m0, Mp, Mp, True)),
-                        ("um", (Xu, Xm, *seg, u0, m0, Up, Mp, False))):
-        err, ms, pms = k1_check(label, args)
-        k1["max_abs_err"] = max(k1["max_abs_err"], err)
-        k1["ms"] += ms
-        k1["plain_ms"] += pms
+    k1 = sum_checks([k1_check("mm", (Xm, Xm, *seg, m0, m0, Mp, Mp, True)),
+                     k1_check("um", (Xu, Xm, *seg, u0, m0, Up, Mp, False))])
     k1_check("mm pooled", (Xm, Xm, *pooled, m0, m0, Mp, Mp, True))
     log(f"region {region_ms:.3f} ms = K1 {k1['ms']:.3f} ms (mm + um) + "
         f"tail {region_ms - k1['ms']:.3f} ms")
 
     # K2 on the batch's own index vectors: both bands' row ids, -1
     # sentinels padding each window's band
-    ms, pms = k2_check("impute batch", run._device_panel(),
-                       np.concatenate(run._aligned_rows(batch.plans)))
-    return {"weighted_gram_t1": k1,
-            "gather_rows": dict(max_abs_err=0.0, ms=ms, plain_ms=pms)}
+    k2 = k2_check("impute batch", run._device_panel(),
+                  np.concatenate(run._aligned_rows(batch.plans)))
+    return {"weighted_gram_t1": k1, "gather_rows": k2}
 
 
 def phase_parity(run, res, lo):
@@ -380,13 +454,11 @@ def phase_ld(run, lo, hi, reps=5):
     # the measured half, its band offsets (each window's first measured
     # row, mostly not ROW_TILE multiples) and the half's gathered row ids
     Xm, _, _, m_t0, _ = args
-    err, ms, pms = k1_check("LD mm", (Xm, Xm, *segments(run), m_t0, m_t0,
-                                      Mp, Mp, True))
-    checks = {"weighted_gram_t1": dict(max_abs_err=err, ms=ms, plain_ms=pms)}
+    checks = {"weighted_gram_t1": k1_check(
+        "LD mm", (Xm, Xm, *segments(run), m_t0, m_t0, Mp, Mp, True))}
     cap = run._res[("half", 1)][0]
-    ms, pms = k2_check("LD measured half", run._device_panel(),
-                       run._half_rows(1, cap))
-    checks["gather_rows"] = dict(max_abs_err=0.0, ms=ms, plain_ms=pms)
+    checks["gather_rows"] = k2_check("LD measured half", run._device_panel(),
+                                     run._half_rows(1, cap))
 
     # the float64 parity on the first, middle and last windows, plus the
     # first window whose band offset is not a ROW_TILE multiple if none
@@ -448,8 +520,12 @@ def phase_qcat(engine, run, lo, hi, reps=5):
     dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs), reps)
     Xm, Xu = b.arrays[0], b.arrays[1]
     m0, u0 = b.inputs[0], b.inputs[1]
-    kms = (k1_ms(run, Xm, Xm, m0, m0, b.Mp, b.Mp, True, reps)
-           + k1_ms(run, Xu, Xm, u0, m0, b.Up, b.Mp, False, reps))
+    seg = segments(run)
+    k1 = sum_checks([
+        k1_check("qcat mm", (Xm, Xm, *seg, m0, m0, b.Mp, b.Mp, True), reps),
+        k1_check("qcat um", (Xu, Xm, *seg, u0, m0, b.Up, b.Mp, False),
+                 reps)])
+    kms = k1["ms"]
     wall = host_wall(lambda: run.qcat_region(lo, hi, window_bp=WINDOW_BP,
                                              wing_size=WING_BP))
     log(f"qcat region on the card {dev_ms:.3f} ms (CUDA events, median of "
@@ -502,7 +578,8 @@ def phase_qcat(engine, run, lo, hi, reps=5):
             raise AssertionError(f"qcat window {i} disagrees with the host "
                                  f"path")
         max_dr = max(max_dr, dr)
-    return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall, max_dr=max_dr)
+    return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall,
+                          max_dr=max_dr), k1
 
 
 def main():
@@ -520,7 +597,7 @@ def main():
     del batch
     phase_parity(run, res, lo)
     ld_launches, _, ld_checks = phase_ld(run, lo, hi)
-    qcat_launches, _ = phase_qcat(engine, run, lo, hi)
+    qcat_launches, _, qcat_k1 = phase_qcat(engine, run, lo, hi)
 
     routes = {
         "weighted_gram_t1": ("gauss_tpu_torch/csrc/gram.cu",
@@ -532,8 +609,11 @@ def main():
     for kname, (src, replaces) in routes.items():
         if not os.path.exists(os.path.join(HERE, src)):
             raise AssertionError(f"missing kernel source {src}")
-        # ms / plain_ms: the impute batch's shapes; the LD batch's beside
+        # ms / plain_ms / bound_ms / library_ms: the impute batch's
+        # shapes; the other paths' beside
         checked = {"impute": kernels[kname], "ld": ld_checks[kname]}
+        if kname == "weighted_gram_t1":
+            checked["qcat"] = qcat_k1
         rows.append({"name": kname, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[kname],
                      "launches_by_path": {"impute": launches[kname],

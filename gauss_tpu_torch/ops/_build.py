@@ -35,15 +35,16 @@ build_log = ""
 
 _P = ctypes.c_void_p
 _SIGNATURES = {
-    # (G, idx, out, n, S, R, stream)
-    "gauss_gather_rows": [_P, _P, _P, ctypes.c_longlong, ctypes.c_longlong,
-                          ctypes.c_longlong, _P],
+    # (G, idx, order, out, n, S, R, stream)
+    "gauss_gather_rows": [_P, _P, _P, _P, ctypes.c_longlong,
+                          ctypes.c_longlong, ctypes.c_longlong, _P],
     # (X, Y, x0, y0, out, W, nx, ny, S, RX, RY, nseg, ends, beta, sym,
     #  stream)
     "gauss_weighted_gram_t1": [_P, _P, _P, _P, _P, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
                                ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, _P, _P, ctypes.c_int, _P],
+    "gauss_weighted_gram_smem": [],
 }
 
 

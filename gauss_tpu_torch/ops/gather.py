@@ -2,9 +2,11 @@
 zero rows (the padding sentinel of ``prepare_resident_panel``).
 
 The kernel is ``csrc/gather.cu`` (replacing the Pallas TPU kernel
-``gauss_tpu/ops/dma_gather.py:gather_rows``).  ``gather_rows`` runs it
-for CUDA tensors and ``gather_rows_plain``, its plain PyTorch twin, for
-CPU tensors only.
+``gauss_tpu/ops/dma_gather.py:gather_rows``): bulk asynchronous row copies
+through shared memory, taken in the order of their source rows so that a
+row named twice is read from HBM once.  ``gather_rows`` runs it for CUDA
+tensors and ``gather_rows_plain``, its plain PyTorch twin, for CPU
+tensors only.
 """
 
 from __future__ import annotations
@@ -60,9 +62,10 @@ def gather_rows(G: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     lib = _build.library()
     with torch.cuda.device(G.device):
+        order = torch.argsort(idx)          # output rows by source row
         err = lib.gauss_gather_rows(
-            G.data_ptr(), idx.data_ptr(), out.data_ptr(), N, S, R,
-            torch.cuda.current_stream(G.device).cuda_stream)
+            G.data_ptr(), idx.data_ptr(), order.data_ptr(), out.data_ptr(),
+            N, S, R, torch.cuda.current_stream(G.device).cuda_stream)
     _build.check(err, "gather_rows")
     launches += 1
     return out

@@ -13,7 +13,8 @@ segment of the subject axis zero-padded to ``K_CHUNK`` columns.  The
 per-segment sums are exact int32; only the f32 fold rounds.
 
 The kernel is ``csrc/gram.cu`` (replacing the Pallas TPU kernel
-``gauss_tpu/ops/pallas_gram.py:weighted_gram_t1``).  ``weighted_gram_t1``
+``gauss_tpu/ops/pallas_gram.py:weighted_gram_t1``): wgmma s8 on 128 x 128
+output tiles, fed by TMA through an mbarrier ring.  ``weighted_gram_t1``
 runs it for CUDA tensors and ``weighted_gram_t1_plain``, its plain
 PyTorch twin, for CPU tensors only.
 """
@@ -27,7 +28,8 @@ import torch
 
 from . import _build
 
-#: output tile edge of the kernel: nx and ny must be multiples
+#: band height granularity: nx and ny must be multiples (the kernel's
+#: 128-row tiles mask a partial last tile)
 ROW_TILE = 64
 #: subject columns per K step: population segments pad to multiples
 K_CHUNK = 64
@@ -133,6 +135,8 @@ def weighted_gram_t1(X: torch.Tensor, Y: torch.Tensor,
                                       x0, y0, nx, ny, sym)
     if X.device.type != "cuda":
         raise ValueError(f"weighted_gram_t1: unsupported device {X.device}")
+    if sym and nx != ny:
+        raise ValueError(f"sym needs nx == ny, got {nx}, {ny}")
     if len(seg_padded) > MAX_SEGS:
         raise ValueError(f"{len(seg_padded)} segments; the kernel holds "
                          f"{MAX_SEGS}")

@@ -426,8 +426,11 @@ def build_resident_ld_kernel(spec: WindowKernelSpec, Mp: int,
     if fetch not in LD_FETCH:
         raise ValueError(f"fetch must be one of {LD_FETCH}, got {fetch!r}")
     blocks = _ResidentBlocks(spec, Mp)
+    # i16full quantizes the mirrored lower triangle: the f32 block is
+    # symmetric only to an ulp ((s alpha) s^T rounds (i, j) and (j, i)
+    # apart), and an entry on a rounding boundary would quantize apart
     pack = {"f32": lambda c: c, "i16tri": pack_tri_i16,
-            "i16full": _quant_i16}[fetch]
+            "i16full": lambda c: _quant_i16(gram.mirror_lower(c))}[fetch]
 
     def fn(Xm, Spm, Mum, m_t0, m_mask):
         def step(sl):

@@ -54,14 +54,23 @@ def test_wrapper_checks_and_cpu_path_does_not_count():
 
 
 @pytest.mark.gpu
-def test_kernel_matches_plain_on_gpu():
+@pytest.mark.parametrize("R, S, N", [
+    (2000, 34176, 5000),     # bench-width rows: three 11,392 B pieces each
+    (300, 96, 700),          # rows narrower than one piece
+    (500, 12304, 900),       # two unequal pieces per row
+    (50, 34176, 3),          # fewer pieces than CTAs
+])
+def test_kernel_matches_plain_on_gpu(R, S, N):
+    """Bit-equal to the plain version, sentinels (-1) and ids >= R giving
+    zero rows, in one launch."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     dev = torch.device("cuda")
-    rng, G = _panel(2, R=2000, S=34176)
-    idx = rng.integers(-1, 2000, 5000).astype(np.int32)
+    rng, G = _panel(2, R=R, S=S)
+    idx = rng.integers(-1, R + 2, N).astype(np.int32)
     Gd, idxd = torch.from_numpy(G).to(dev), torch.from_numpy(idx).to(dev)
     before = gather.launches
     got = gather.gather_rows(Gd, idxd)
     assert gather.launches == before + 1
-    assert torch.equal(got, gather.gather_rows_plain(Gd, idxd))
+    ref = gather.gather_rows_plain(Gd, idxd.where(idxd < R, -1))
+    assert torch.equal(got, ref)
