@@ -42,6 +42,22 @@ Phases (each prints its evidence; any failure exits non-zero):
               against the float64 host qcat (_qcat_core on
               _build_corr_blocks_fn's blocks): qcat_m equal, max|dr| <=
               1e-4 on r = t / sqrt(m - 3).
+8. jepeg   -- GenomeEngine.prepare_genes -> PreparedGenes.jepeg_region
+              on the same store: 280 genes x 24 annotated SNPs
+              (utils/testing.make_annotation), jepegmix (the main path's
+              weights) and jepeg (one population), jepeg_region twice
+              each; K2 launches at least once per gene bucket and is
+              checked against its plain version on the path's own ids
+              (bit-equal, with its bound and yardstick); every gene
+              against the same call on a CPU engine (chisq and p-values
+              rtol 1e-9; df, geneid, top_categ, top_snp equal).
+9. probe7  -- K3 (int4 dot, the SASS instruction it compiled to) at the
+              TPU probe's shape (256 x 2048) and at K1's yardstick shape
+              (A 55,040 x 34,176, B 1,280 x 34,176), and K4 (resident row
+              sums) at every size that fits one cluster (int8 and int4,
+              cluster 1 and 8; the capacities from the occupancy
+              queries), each against its plain version, exactly, with
+              its time, bound and yardstick (torch._int_mm; x.sum).
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after.  The line before the last is a JSON object
@@ -49,9 +65,13 @@ read just after.  The line before the last is a JSON object
 """
 
 import argparse
+import collections
 import dataclasses
+import glob
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -62,11 +82,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from gauss_tpu_torch.core import ldkernels                     # noqa: E402
+from gauss_tpu_torch.core import genekernels, ldkernels        # noqa: E402
+from gauss_tpu_torch.io import readers                         # noqa: E402
 from gauss_tpu_torch.models import qcat                        # noqa: E402
 from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            _build_corr_blocks_fn)
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
+from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
+from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
 from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (LD_I16_MAX_ERR,  # noqa: E402
                                                _gram_segments, win_slab)
@@ -83,6 +106,9 @@ K1_REL_TOL = 1e-6        # f32 folds of exact int32 segment sums
 DZ_TOL = 1e-4            # f32 region solves vs the float64 host path
 DR_LD_TOL = 2e-4         # f32 LD vs the float64 weighted correlations
 DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
+GENE_RTOL = 1e-9         # float64 gene statistics, card vs CPU
+N_GENES, GENE_SNPS = 280, 24   # ~6.5 genes per Mb over the 43 Mb region
+STUDY_POP = "CEU"        # jepeg's one population (the largest)
 WARM_S = 0.05            # warm-up seconds before each timing
 # published peaks of one H100 SXM (dense int8 tensor-core rate, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
@@ -96,11 +122,13 @@ def log(msg):
 def reset_counts():
     gram.launches = 0
     gather.launches = 0
+    for k in p7.launches:
+        p7.launches[k] = 0
 
 
 def read_counts():
     return {"weighted_gram_t1": gram.launches,
-            "gather_rows": gather.launches}
+            "gather_rows": gather.launches, **p7.launches}
 
 
 def cuda_ms(fn, reps):
@@ -581,6 +609,201 @@ def phase_qcat(engine, run, lo, hi, reps=5):
     return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall,
                           max_dr=max_dr), k1
 
+class _IndexOf:
+    """What make_annotation reads of a panel: its index."""
+
+    def __init__(self, index):
+        self.index_df = index
+
+
+def gene_frames_agree(got, ref):
+    """(max relative difference of chisq and the p-values, whether df,
+    geneid, top_categ and top_snp are equal) of two jepeg frames."""
+    got = got.sort_values("geneid", kind="stable").reset_index(drop=True)
+    ref = ref.sort_values("geneid", kind="stable").reset_index(drop=True)
+    same = len(got) == len(ref) and all(
+        list(got[c]) == list(ref[c])
+        for c in ("df", "geneid", "top_categ", "top_snp"))
+    rel = 0.0
+    for c in ("chisq", "jepeg_pval", "top_categ_pval", "top_snp_pval"):
+        a, b = got[c].to_numpy(), ref[c].to_numpy()
+        if not np.allclose(a, b, rtol=GENE_RTOL, atol=1e-300,
+                           equal_nan=True):
+            rel = float("inf")
+        d = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
+        rel = max(rel, float(np.nanmax(d)) if len(d) else 0.0)
+    return rel, same
+
+
+def phase_jepeg(engine, reps=3):
+    """prepare_genes -> jepeg_region on the main path's store and input:
+    jepegmix with the main path's weights, then jepeg on one population,
+    jepeg_region twice each; every gene against a CPU engine's run."""
+    store = engine.store
+    inp = make_bench_input(store, MEASURED_FRAC)
+    path = os.path.join(CACHE, f"annot_{len(store.index)}.txt")
+    os.makedirs(CACHE, exist_ok=True)
+    make_annotation(_IndexOf(store.index), path,
+                    n_genes=min(N_GENES, len(store.index) // (GENE_SNPS + 1)),
+                    snps_per_gene=GENE_SNPS)
+    annot = readers.read_annotation(path)
+    cpu = GenomeEngine(store, device="cpu")
+    pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
+    total = {"gather_rows": 0}
+    out = {}
+    for mode, kw in (("jepegmix", dict(pop_wgt=pop_wgt)),
+                     ("jepeg", dict(study_pop=STUDY_POP))):
+        reset_counts()
+        t = time.perf_counter()
+        pg = engine.prepare_genes(inp, annot, **kw)
+        prep_s = time.perf_counter() - t
+        t = time.perf_counter()
+        res = pg.jepeg_region()
+        first_s = time.perf_counter() - t
+        res = pg.jepeg_region()
+        launches = read_counts()
+        panel = pg._device_panel()
+        gsel = pg._select(None, None)
+        idx, Ws, zs = pg._gene_inputs(gsel)
+        buckets = genekernels._buckets([len(g) for g in idx],
+                                       panel.shape[1], 1 << 26)
+        log(f"jepeg ({mode}): {len(gsel)} genes ({len(pg.zs)} gene SNPs), "
+            f"{len(buckets)} buckets (sizes "
+            f"{[(npad, len(b)) for npad, b in buckets]}), panel "
+            f"{tuple(panel.shape)} on the card; launches during "
+            f"jepeg_region x2: {launches}")
+        if launches["gather_rows"] < 2 * len(buckets):
+            raise AssertionError("K2 was not launched once per gene bucket")
+        total["gather_rows"] += launches["gather_rows"]
+
+        stats = lambda: genekernels.gene_stats_resident(
+            panel, idx, Ws, zs, pg.pop_sizes, pg.wgts,
+            lam=engine.settings.lambda_)
+        dev_ms = cuda_ms(stats, reps)
+        wall = host_wall(pg.jepeg_region, reps)
+        t = time.perf_counter()
+        ref = cpu.prepare_genes(inp, annot, **kw).jepeg_region()
+        cpu_s = time.perf_counter() - t
+        rel, same = gene_frames_agree(res, ref)
+        tested = int((res["df"] > 0).sum())
+        log(f"jepeg ({mode}): prepare_genes {prep_s:.2f}s; first "
+            f"jepeg_region (incl. panel upload) {first_s:.3f}s; gene stats "
+            f"on the card {dev_ms:.3f} ms (CUDA events, median of {reps}); "
+            f"jepeg_region {wall * 1e3:.1f} ms wall (median of {reps}) -> "
+            f"{len(gsel) / wall:.1f} genes/s ({tested} tested); vs the CPU "
+            f"engine ({cpu_s:.1f}s): max rel diff of chisq and p-values "
+            f"{rel:.3e} (tol {GENE_RTOL:g}), df/geneid/top_categ/top_snp "
+            f"equal={same}")
+        if not (rel <= GENE_RTOL and same and tested > 0):
+            raise AssertionError(f"jepeg ({mode}) on the card disagrees "
+                                 f"with the CPU engine")
+        ids = genekernels._bucket_rows(buckets, idx)
+        out[mode] = dict(ms=dev_ms, wall_s=wall, genes=len(gsel),
+                         buckets=len(buckets), max_rel=rel,
+                         k2=k2_check(f"jepeg {mode} buckets", panel, ids))
+    return total, out
+
+
+def sass_mma(kernel):
+    """Counts of the tensor-core instructions (IMMA/HMMA) in the SASS of
+    one kernel of the built library (cuobjdump)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    so = [f for f in glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))
+          if os.path.basename(f).startswith("libgauss_kernels_")]
+    sass = subprocess.run([tool, "-sass", max(so, key=os.path.getmtime)],
+                          check=True, capture_output=True, text=True,
+                          timeout=300).stdout
+    body = next(f for f in sass.split("Function : ") if kernel in
+                f.split("\n", 1)[0])
+    return dict(collections.Counter(re.findall(r"\b[IH]MMA[.\w]*", body)))
+
+
+def k3_check(label, a, b, reps=5, plain_reps=2):
+    """K3 against its plain version (exact), timed beside its bound and
+    torch._int_mm on the int8 operands."""
+    got = p7.int4_dot(a, b)
+    equal = bool(torch.equal(got, p7.int4_dot_plain(a, b)))
+    del got
+    (M, K), N = a.shape, b.shape[0]
+    ms = cuda_ms(lambda: p7.int4_dot(a, b), reps)
+    pms = cuda_ms(lambda: p7.int4_dot_plain(a, b), plain_reps)
+    lib = cuda_ms(lambda: torch._int_mm(a, b.t()), reps)
+    b_ms, b_by = bound(2.0 * M * N * K, M * K + N * K + 4.0 * M * N)
+    log(f"K3 int4_dot {label}: M={M} N={N} K={K}: exact={equal}; kernel "
+        f"{ms:.3f} ms ({2.0 * M * N * K / ms / 1e9:.1f} TOP/s), bound "
+        f"{b_ms:.3f} ms ({b_by}, int8 peak) = {b_ms / ms:.1%} of bound, "
+        f"torch._int_mm {lib:.3f} ms, plain {pms:.3f} ms")
+    if not equal:
+        raise AssertionError(f"K3 {label} differs from its plain version")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib)
+
+
+def k4_check(dtype, cluster, x8, reps=5):
+    """K4 at every size that fits one cluster, exactly, then timed at the
+    largest beside its bound and x.sum(1) on the int8 block."""
+    blk = x8 if dtype == "int8" else p7.pack_int4(x8)
+    row_bytes = blk.shape[1]
+    k, optin, n = p7.capacity(row_bytes, cluster)
+    R = k * cluster
+    if R < 1 or R > blk.shape[0]:
+        raise AssertionError(f"K4 {dtype} cluster {cluster}: {R} rows fit")
+    bad = [r for r in range(1, R + 1)
+           if not torch.equal(p7.resident_rowsum(blk[:r], dtype, cluster),
+                              p7.resident_rowsum_plain(blk[:r], dtype))]
+    x, xb = blk[:R].contiguous(), x8[:R].contiguous()
+    ms = cuda_ms(lambda: p7.resident_rowsum(x, dtype, cluster), reps)
+    pms = cuda_ms(lambda: p7.resident_rowsum_plain(x, dtype), reps)
+    lib = cuda_ms(lambda: xb.sum(1, dtype=torch.int32), reps)
+    b_ms, b_by = bound(0.0, R * row_bytes + R * 128 * 4.0)
+    log(f"K4 resident_rowsum {dtype} cluster {cluster}: {k} rows/CTA = "
+        f"{k * row_bytes / 1024:.1f} KiB of {optin / 1024:.1f} KiB, {R} "
+        f"rows = {R * row_bytes / 1024:.1f} KiB per cluster, {n} clusters "
+        f"at once; sizes 1..{R} exact={not bad}; at {R} rows kernel "
+        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of "
+        f"bound, x.sum(1) {lib:.4f} ms, plain {pms:.4f} ms")
+    if bad:
+        raise AssertionError(f"K4 {dtype} cluster {cluster} wrong at "
+                             f"{bad[:5]} rows")
+    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=lib, rows=R, rows_per_cta=k,
+                clusters_at_once=n)
+
+
+def phase_probe7(dev):
+    """Probe 7's kernels against their plain versions: K3 at the TPU
+    probe's shape and at K1's yardstick shape, K4 at every size that fits
+    (int8 and int4, clusters of 1 and 8).  These launches check and time
+    the kernels: no path of the system runs them, so none is counted."""
+    ops = sass_mma("int4_dot_kernel")
+    log(f"K3 SASS tensor-core instructions: {ops}")
+    rng = np.random.default_rng(0)
+    a = torch.from_numpy(rng.integers(-2, 3, (256, 2048),
+                                      dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-2, 3, (256, 2048),
+                                      dtype=np.int8)).to(dev)
+    k3 = {"probe 256x2048": k3_check("probe shape 256 x 2048", a, b)}
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randint(-2, 3, (43 * 1280, 34176), dtype=torch.int8,
+                      device=dev, generator=g)
+    B = torch.randint(-2, 3, (1280, 34176), dtype=torch.int8, device=dev,
+                      generator=g)
+    k3["K1 yardstick 55040x1280x34176"] = k3_check(
+        "K1 yardstick shape", A, B)
+    del A, B
+    torch.cuda.empty_cache()
+    x8 = torch.from_numpy(rng.integers(0, 3, (160, p7.ROW),
+                                       dtype=np.int8)).to(dev)
+    k4 = {f"{dt} cluster {c}": k4_check(dt, c, x8)
+          for dt in ("int8", "int4") for c in (1, 8)}
+    for dt, rb in (("int8", p7.ROW), ("int4", p7.ROW // 2)):
+        k, optin, n = p7.capacity(rb, 16)
+        log(f"K4 capacity {dt} cluster 16 (non-portable): {k} rows/CTA, "
+            f"{16 * k} rows = {16 * k * rb / 1024:.1f} KiB per cluster, "
+            f"{n} clusters at once")
+    return k3, k4, ops
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -598,31 +821,58 @@ def main():
     phase_parity(run, res, lo)
     ld_launches, _, ld_checks = phase_ld(run, lo, hi)
     qcat_launches, _, qcat_k1 = phase_qcat(engine, run, lo, hi)
+    del run
+    torch.cuda.empty_cache()
+    jepeg_launches, jepeg = phase_jepeg(engine)
+    k3, k4, k3_sass = phase_probe7(dev)
 
     routes = {
         "weighted_gram_t1": ("gauss_tpu_torch/csrc/gram.cu",
                              "gauss_tpu/ops/pallas_gram.py:203"),
         "gather_rows": ("gauss_tpu_torch/csrc/gather.cu",
                         "gauss_tpu/ops/dma_gather.py:70"),
+        "int4_dot": ("gauss_tpu_torch/csrc/probe7_int4.cu",
+                     "probes/probe7_int4.py:49"),
+        "resident_rowsum": ("gauss_tpu_torch/csrc/probe7_int4.cu",
+                            "probes/probe7_int4.py:71"),
     }
+    # ms / plain_ms / bound_ms / library_ms of each row: the impute batch
+    # (K1, K2), K1's yardstick shape (K3), int8 in clusters of 8 (K4); the
+    # other checks beside, by path
+    checked = {
+        "weighted_gram_t1": {"impute": kernels["weighted_gram_t1"],
+                             "ld": ld_checks["weighted_gram_t1"],
+                             "qcat": qcat_k1},
+        "gather_rows": {"impute": kernels["gather_rows"],
+                        "ld": ld_checks["gather_rows"],
+                        **{f"jepeg {m}": r["k2"]
+                           for m, r in jepeg.items()}},
+        "int4_dot": {"probe7": k3},
+        "resident_rowsum": {"probe7": k4},
+    }
+    top = {"weighted_gram_t1": kernels["weighted_gram_t1"],
+           "gather_rows": kernels["gather_rows"],
+           "int4_dot": k3["K1 yardstick 55040x1280x34176"],
+           "resident_rowsum": k4["int8 cluster 8"]}
+    by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
+               "jepeg": jepeg_launches}
     rows = []
     for kname, (src, replaces) in routes.items():
         if not os.path.exists(os.path.join(HERE, src)):
             raise AssertionError(f"missing kernel source {src}")
-        # ms / plain_ms / bound_ms / library_ms: the impute batch's
-        # shapes; the other paths' beside
-        checked = {"impute": kernels[kname], "ld": ld_checks[kname]}
-        if kname == "weighted_gram_t1":
-            checked["qcat"] = qcat_k1
-        rows.append({"name": kname, "route": "cuda", "source": src,
-                     "replaces": replaces, "launches": launches[kname],
-                     "launches_by_path": {"impute": launches[kname],
-                                          "ld": ld_launches[kname],
-                                          "qcat": qcat_launches[kname]},
-                     **kernels[kname],
-                     "max_abs_err": max(c["max_abs_err"]
-                                        for c in checked.values()),
-                     "checked_by_path": checked})
+        flat = [c for v in checked[kname].values()
+                for c in (v.values() if "ms" not in v else [v])]
+        row = {"name": kname, "route": "cuda", "source": src,
+               "replaces": replaces, "launches": launches.get(kname, 0),
+               "launches_by_path": {p: c.get(kname, 0)
+                                    for p, c in by_path.items()},
+               **{k: top[kname][k] for k in ("ms", "plain_ms", "bound_ms",
+                                             "bound_by", "library_ms")},
+               "max_abs_err": max(c["max_abs_err"] for c in flat),
+               "checked_by_path": checked[kname]}
+        if kname == "int4_dot":
+            row["sass_mma"] = k3_sass
+        rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

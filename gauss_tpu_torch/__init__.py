@@ -4,14 +4,20 @@ A port of the JAX package ``gauss_tpu`` (which stays the reference).
 Ported so far:
 
 * the per-call float64 API: dist, distmix, compute_ld (computeLD),
-  simulate_ld (simulateLD), and lazily qcat, qcatmix, prep_qcat and
-  prep_recessive_impute;
+  simulate_ld (simulateLD), and lazily qcat, qcatmix, prep_qcat,
+  prep_recessive_impute, jepeg, jepegmix, the ancestry family (afmix,
+  cpw2, prep_zmix .. prep_zmix5_sup, zmix), fiqt and the bundled
+  PGC2_SCZ_ANC_Prop weights;
 * the genome engine (``models.genome.GenomeEngine``): the decoded panel
   store, the float64 host parity path, and the resident region kernels
   for imputation (impute_region), LD (ld_window / ld_region) and qcat
-  (qcat_region), whose Gram (K1, ``ops/gram.py``) and row gather (K2,
-  ``ops/gather.py``) are CUDA kernels for sm_90a, built from ``csrc/``
-  on first use.  CPU tensors run the kernels' plain PyTorch versions.
+  (qcat_region), gene tests (prepare_genes -> jepeg_region) and
+  ancestry over the store, whose Gram (K1, ``ops/gram.py``) and row
+  gather (K2, ``ops/gather.py``) are CUDA kernels for sm_90a, built from
+  ``csrc/`` on first use.  CPU tensors run the kernels' plain PyTorch
+  versions;
+* probe 7 (``probes/probe7_int4.py``): an int4 product (K3) and row sums
+  over a block resident in a cluster's shared memory (K4).
 
 Importing the package has no side effects: nothing is built, no device
 is touched.
@@ -36,8 +42,18 @@ __all__ = [
 
 def __getattr__(name):
     """Lazy exports for the wider API surface (keeps import light)."""
-    lazy = {n: ("gauss_tpu_torch.models.qcat", n) for n in (
-        "qcat", "qcatmix", "prep_qcat", "prep_recessive_impute")}
+    lazy = {n: ("gauss_tpu_torch.models.ancestry", n) for n in (
+        "afmix", "cpw2", "zmix", "prep_zmix", "prep_zmix2", "prep_zmix3",
+        "prep_zmix4", "prep_zmix5", "prep_zmix5_sup")}
+    lazy.update({n: ("gauss_tpu_torch.models.qcat", n) for n in (
+        "qcat", "qcatmix", "prep_qcat", "prep_recessive_impute")})
+    lazy.update({"jepeg": ("gauss_tpu_torch.models.jepeg", "jepeg"),
+                 "jepegmix": ("gauss_tpu_torch.models.jepeg", "jepegmix"),
+                 "fiqt": ("gauss_tpu_torch.models.fiqt", "fiqt"),
+                 "PGC2_SCZ_ANC_Prop": ("gauss_tpu_torch.data",
+                                       "PGC2_SCZ_ANC_Prop"),
+                 "pgc2_scz_anc_prop": ("gauss_tpu_torch.data",
+                                       "pgc2_scz_anc_prop")})
     if name in lazy:
         import importlib
         mod, attr = lazy[name]

@@ -62,6 +62,13 @@ def pooled_corr(Ga: np.ndarray, Gb: np.ndarray) -> np.ndarray:
     return stats.pooled_corr_matrix(_t(Ga), _t(Gb)).numpy()
 
 
+def per_pop_corr(G: np.ndarray, pop_sizes) -> np.ndarray:
+    """Per-population correlation matrices [P, N, N] (per-string CalCor,
+    src/util.cpp:153-169)."""
+    return stats.per_pop_corr_matrices(
+        _t(G), stats.segment_bounds(pop_sizes)).numpy()
+
+
 def set_diag(a: np.ndarray, value: float) -> np.ndarray:
     """Overwrite the diagonal (the reference writes diagonals explicitly:
     1.0 for computeLD, 1+lambda for B11)."""

@@ -42,6 +42,35 @@ def count_pc(a: torch.Tensor, eig_cutoff: float) -> int:
     return int(torch.sum(~(w < eig_cutoff)))
 
 
+def cov_to_cor(cov: torch.Tensor) -> torch.Tensor:
+    """Covariance -> correlation (CnvrtCovToCor, src/util.cpp:284-296)."""
+    std = torch.sqrt(torch.diagonal(cov))
+    return cov / torch.outer(std, std)
+
+
+def cal_cov_mat(m: torch.Tensor) -> torch.Tensor:
+    """Column-pairwise covariance with an n-1 denominator (CalCovMat /
+    CalCov, src/util.cpp:205-253)."""
+    d = m - m.mean(dim=0, keepdim=True)
+    return (d.T @ d) / (m.shape[0] - 1)
+
+
+def cal_cor_mat(m: torch.Tensor) -> torch.Tensor:
+    """Column-pairwise Pearson correlation (CalCorMat / CalCor,
+    src/util.cpp:194-241)."""
+    d = m - m.mean(dim=0, keepdim=True)
+    ss = torch.sqrt((d * d).sum(dim=0))
+    return (d.T @ d) / torch.outer(ss, ss)
+
+
+def cal_cor_vec(x: torch.Tensor, y: torch.Tensor) -> float:
+    """Pearson correlation of two vectors (CalCor on Eigen vectors,
+    src/util.cpp:194-203)."""
+    dx, dy = x - x.mean(), y - y.mean()
+    return float((dx * dy).sum()
+                 / torch.sqrt((dx * dx).sum() * (dy * dy).sum()))
+
+
 def rmv_pc(a: torch.Tensor, eig_cutoff: float) -> Tuple[torch.Tensor, int]:
     """Zero out principal components with eigenvalue <= cutoff (RmvPC,
     src/util.cpp:320-353; keeps components strictly above the cutoff).

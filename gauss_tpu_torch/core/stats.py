@@ -131,6 +131,19 @@ def pooled_corr_combine(Cp: torch.Tensor, Sa: torch.Tensor,
     return numer / (da[:, None] * db[None, :])
 
 
+def per_pop_corr_matrices(G: torch.Tensor, bounds: np.ndarray
+                          ) -> torch.Tensor:
+    """Per-population Pearson correlation matrices R[P, N, N], float64:
+    the per-string CalCor (src/util.cpp:153-169) of the prep_zmix
+    family."""
+    C = pop_cross_products(G, G, bounds)
+    S, Q = pop_row_stats(G, bounds)
+    return torch.stack([
+        pooled_corr_combine(C[k], S[:, k], S[:, k], Q[:, k], Q[:, k],
+                            float(int(bounds[k + 1]) - int(bounds[k])))
+        for k in range(C.shape[0])])
+
+
 def pooled_corr_matrix(Ga: torch.Tensor, Gb: torch.Tensor) -> torch.Tensor:
     """Pooled CalCor over all subject columns of Ga/Gb (populations
     concatenated), as dist uses it."""

@@ -1,67 +1,96 @@
 """ctypes bindings for the native (C++) panel decoder.
 
-Loads csrc/libgauss_panel.so when present (build with csrc/build.sh);
-callers fall back to the pure-Python BGZF path otherwise.  The native
-layer replaces the reference's single-threaded bgzf.c with parallel
-block inflation + row parsing (see csrc/panel_decoder.cpp).
+The decoder (``gauss_tpu_torch/csrc/panel_decoder.cpp``: parallel BGZF
+block inflation and row parsing in place of the reference's
+single-threaded bgzf.c) is compiled with ``g++`` on first use into
+``gauss_tpu_torch/_build/``, under a name keyed by a hash of the source
+and flags: an unchanged tree loads the existing build.
+
+``get_lib(required=True)`` raises with the compiler's output when the
+build fails; ``available()`` (what ``PanelReader(use_native=None)``
+asks) prints that failure once as a warning and lets the pure-Python
+BGZF reader serve.  Nothing is built at import time.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
+import subprocess
+import warnings
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SRC = os.path.join(_PKG, "csrc", "panel_decoder.cpp")
+BUILD_DIR = os.path.join(_PKG, "_build")
+CXX_FLAGS = ["-O3", "-march=native", "-std=c++17", "-shared", "-fPIC"]
+LIBS = ["-lz", "-lpthread"]
+
 _LIB = None
-_TRIED = False
+_ERROR: Optional[str] = None       # the failed build's message, once known
 
 
-def _find_lib() -> Optional[str]:
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    cands = [
-        os.path.join(here, "csrc", "libgauss_panel.so"),
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     "libgauss_panel.so"),
-        os.environ.get("GAUSS_PANEL_LIB", ""),
-    ]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    return None
+def build() -> str:
+    """Path of the compiled decoder, compiling it first if missing.
+    Raises RuntimeError with the compiler's output on failure."""
+    with open(SRC, "rb") as fh:
+        src = fh.read()
+    h = hashlib.sha256(" ".join(CXX_FLAGS + LIBS).encode() + b"\0" + src)
+    so = os.path.join(BUILD_DIR, f"libgauss_panel_{h.hexdigest()[:16]}.so")
+    if not os.path.exists(so):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{so}.{os.getpid()}.tmp"
+        cmd = ["g++", *CXX_FLAGS, SRC, "-o", tmp, *LIBS]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except OSError as e:       # no compiler on this machine
+            raise RuntimeError(f"{' '.join(cmd)}: {e}") from e
+        if proc.returncode != 0:
+            raise RuntimeError("g++ failed (exit %d): %s\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+        os.replace(tmp, so)    # atomic: a concurrent loader sees all or none
+    return so
 
 
-def get_lib():
-    global _LIB, _TRIED
-    if _TRIED:
-        return _LIB
-    _TRIED = True
-    path = _find_lib()
-    if path is None:
-        return None
-    try:
-        lib = ctypes.CDLL(path)
-        lib.gauss_bgzf_open.restype = ctypes.c_void_p
-        lib.gauss_bgzf_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
-        lib.gauss_bgzf_close.argtypes = [ctypes.c_void_p]
-        lib.gauss_bgzf_size.restype = ctypes.c_int64
-        lib.gauss_bgzf_size.argtypes = [ctypes.c_void_p]
-        lib.gauss_bgzf_read_all.restype = ctypes.c_int
-        lib.gauss_bgzf_read_all.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
-        lib.gauss_decode_rows.restype = ctypes.c_int
-        lib.gauss_decode_rows.argtypes = [
-            ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_int64,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
-        lib.gauss_last_error.restype = ctypes.c_char_p
-        _LIB = lib
-    except OSError:
-        _LIB = None
+def _load(path: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(path)
+    lib.gauss_bgzf_open.restype = ctypes.c_void_p
+    lib.gauss_bgzf_open.argtypes = [ctypes.c_char_p, ctypes.c_int]
+    lib.gauss_bgzf_close.argtypes = [ctypes.c_void_p]
+    lib.gauss_bgzf_size.restype = ctypes.c_int64
+    lib.gauss_bgzf_size.argtypes = [ctypes.c_void_p]
+    lib.gauss_bgzf_read_all.restype = ctypes.c_int
+    lib.gauss_bgzf_read_all.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64]
+    lib.gauss_decode_rows.restype = ctypes.c_int
+    lib.gauss_decode_rows.argtypes = [
+        ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+    lib.gauss_last_error.restype = ctypes.c_char_p
+    return lib
+
+
+def get_lib(required: bool = False):
+    """The loaded decoder, built first if needed.  On a failed build:
+    raise (required) or warn once and return None."""
+    global _LIB, _ERROR
+    if _LIB is None and _ERROR is None:
+        try:
+            _LIB = _load(build())
+        except (RuntimeError, OSError) as e:
+            _ERROR = str(e)
+            if not required:
+                warnings.warn("native panel decoder unavailable, the "
+                              f"pure-Python BGZF reader serves: {e}",
+                              RuntimeWarning, stacklevel=2)
+    if _LIB is None and required:
+        raise RuntimeError(f"native panel decoder: {_ERROR}")
     return _LIB
 
 
@@ -73,9 +102,7 @@ class NativeBgzf:
     """Handle over a fully-inflated BGZF file (native decoder)."""
 
     def __init__(self, path: str, n_threads: int = 0):
-        lib = get_lib()
-        if lib is None:
-            raise RuntimeError("native panel decoder not built")
+        lib = get_lib(required=True)
         self._lib = lib
         self._h = lib.gauss_bgzf_open(path.encode(), n_threads)
         if not self._h:

@@ -86,9 +86,10 @@ class DecodedRows:
 class PanelReader:
     """Bulk decoder for the bgzf panel data file.
 
-    Uses the native multithreaded decoder (csrc/panel_decoder.cpp via
-    io/native.py) when the shared library is built, falling back
-    to the pure-Python block reader otherwise.
+    Uses the native multithreaded decoder (csrc/panel_decoder.cpp, built
+    on first use by io/native.py): always with use_native=True (a failed
+    build raises), if it builds with the default use_native=None (else
+    the pure-Python block reader serves, after one warning).
     """
 
     def __init__(self, data_file: str, desc: PopDesc,

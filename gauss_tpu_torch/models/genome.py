@@ -1,5 +1,6 @@
 """Genome-scale windowed engine: imputation (dist/distmix), LD
-(computeLD) and causality tests (qcat/qcatmix).
+(computeLD), causality tests (qcat/qcatmix), gene tests
+(jepeg/jepegmix) and ancestry (afmix, cpw2, prep_zmix5, zmix).
 
 The reference scales to a genome by calling each analysis once per
 window, re-reading the panel every call (SURVEY.md section 2.3).  Here
@@ -8,6 +9,8 @@ are uploaded to the engine's device once, and a region's windows run as
 one batch through a resident region kernel (``ops/window_kernel``: K2
 row gathers at preparation, K1 Grams per slab of windows, f32 solves):
 ``impute_region``, ``ld_region`` / ``ld_window`` and ``qcat_region``.
+Gene tests gather each bucket of genes with K2 from the panel on the
+device (``prepare_genes`` -> ``PreparedGenes.jepeg_region``).
 A float64 host path (``PreparedRun.impute_window``, and the per-call
 ``models/dist``, ``models/ld``, ``models/qcat``) reproduces the
 reference arithmetic and is the parity anchor.
@@ -26,7 +29,7 @@ import torch
 from torch.profiler import record_function
 
 from ..config import DEFAULT_SETTINGS, PanelFiles, Settings
-from ..core import linalg, stats, variants
+from ..core import genekernels, linalg, stats, variants
 from ..io import readers
 from ..io.panel import PanelReader, read_panel_index
 from ..ops.gram import K_CHUNK, ROW_TILE
@@ -37,6 +40,9 @@ from ..ops.window_kernel import (LD_FETCH, WindowKernelSpec, _dequant_i16,
                                  pad_pop_segments, prepare_resident_panel,
                                  unpack_tri_i16, win_slab)
 from ..utils.special import pchisq_upper, pnorm_two_sided
+from . import ancestry
+from .jepeg import (_categ_arrays, _gene_runs, empty_gene_frame,
+                    run_gene_tests_stats)
 
 #: the function that builds each resident kernel, by the engine's name
 _BUILDERS = {"impute": build_resident_region_kernel,
@@ -149,11 +155,13 @@ class GenomeEngine:
         sizes = tuple(int(self.store.desc.sizes[k]) for k in sel)
         return sel, cols, sizes
 
-    def _join(self, input_df: pd.DataFrame):
-        """Join the input against the in-memory index; map fpos back to
+    def _join(self, input_df: pd.DataFrame, **join_kw):
+        """Join the input against the in-memory index (with unmeasured
+        panel rows unless ``join_kw`` says otherwise); map fpos back to
         store rows (-1 where the panel lacks the SNP)."""
         table = variants.join_reference_index(
-            input_df, self.store.index, add_unmeasured=True)
+            input_df, self.store.index, **{"add_unmeasured": True,
+                                           **join_kw})
         fmap = pd.Series(np.arange(len(self.store.index)),
                          index=self.store.index["fpos"].to_numpy())
         g_row = np.full(len(table), -1, dtype=np.int64)
@@ -197,6 +205,92 @@ class GenomeEngine:
         table = table[keep].reset_index(drop=True)
         g_row = g_row[keep]
         return PreparedRun(self, table, g_row, cols, sizes, None)
+
+    def prepare_genes(self, input_df: pd.DataFrame, annot_df: pd.DataFrame,
+                      study_pop: Optional[str] = None,
+                      pop_wgt: Optional[Dict[str, float]] = None,
+                      af1_cutoff: float = 0.01) -> "PreparedGenes":
+        """Join input and annotation against the resident panel once, for
+        genome-scale jepeg (study_pop) or jepegmix (pop_wgt): exactly one
+        of the two.  The reference re-runs this pipeline on every call
+        (src/jepegmix.cpp:65-91); here PreparedGenes.jepeg_region gathers
+        the gene blocks from the panel on the engine's device."""
+        if (study_pop is None) == (pop_wgt is None):
+            raise ValueError("exactly one of study_pop / pop_wgt required")
+        if pop_wgt is not None:
+            flags, wgts = readers.init_pop_flag_wgts(self.store.desc, pop_wgt)
+            wgts = tuple(float(x) for x in wgts)
+        else:
+            flags = readers.init_pop_flags(self.store.desc, study_pop)
+            wgts = None
+        sel, cols, sizes = self._select(flags)
+
+        table, g_row, has = self._join(input_df, add_unmeasured=False,
+                                       flip_af1study=True)
+        table, categs = variants.join_annotation(table, annot_df)
+
+        # MakeSnpVec[Mix] AF filter (src/gauss.cpp:543-693)
+        n = len(table)
+        af = np.full(n, np.nan)
+        if wgts is None:
+            counts = self.store.G[np.ix_(g_row[has], cols)].astype(
+                np.int64).sum(axis=1)
+            af[has] = np.ceil(counts / (2.0 * float(sum(sizes))) * 1e5) / 1e5
+            table = table.assign(af1ref=af)
+        else:
+            af[has] = self.store.af[g_row[has]][:, sel] @ np.asarray(wgts)
+            table = table.assign(af1mix=af)
+        keep = has.copy()   # type-2 rows drop (MakeSnpVec NaN filter)
+        keep[has] = (af[has] > af1_cutoff) & (af[has] < 1 - af1_cutoff)
+
+        # gene SNPs: measured and annotated (src/jepeg.cpp:73-79), sorted
+        # by geneid (stable, src/jepeg.cpp:87), in contiguous runs
+        typ = table["type"].to_numpy()
+        gid = table["geneid"].to_numpy()
+        gene_rows = np.flatnonzero(keep & (typ == 1) & (gid != "."))
+        cw, cp = _categ_arrays(categs, n)
+        order = np.argsort(table["geneid"].to_numpy()[gene_rows],
+                           kind="stable")
+        gene_rows = gene_rows[order]
+        sub = table.iloc[gene_rows]
+        gids = sub["geneid"].to_numpy()
+        starts, ends = _gene_runs(gids)
+        bps = sub["bp"].to_numpy()
+        gene_min_bp = np.asarray([bps[s:e].min() for s, e in
+                                  zip(starts, ends)], dtype=np.int64)
+        return PreparedGenes(
+            engine=self, zs=sub["z"].to_numpy(),
+            infos=sub["info"].to_numpy(), rsids=sub["rsid"].to_numpy(),
+            gids=gids, panel_rows=g_row[gene_rows],
+            spans=list(zip(starts.tolist(), ends.tolist())),
+            gene_min_bp=gene_min_bp,
+            cw_rows=cw[gene_rows], cp_rows=cp[gene_rows],
+            subj_cols=cols, pop_sizes=sizes, wgts=wgts)
+
+    # -- ancestry over the resident panel ---------------------------------------
+    def afmix(self, input_af_df: pd.DataFrame,
+              interval: Optional[int] = None) -> pd.DataFrame:
+        """afmix over the decoded store (src/afmix.cpp re-reads the panel
+        on every call)."""
+        return ancestry.afmix_store(self.store, input_af_df, interval,
+                                    self.settings)
+
+    def cpw2(self, input_af_df: pd.DataFrame,
+             interval: Optional[int] = None) -> pd.DataFrame:
+        return ancestry.cpw2_store(self.store, input_af_df, interval,
+                                   self.settings)
+
+    def prep_zmix5(self, input_z_df: pd.DataFrame,
+                   percentile: Optional[float] = None,
+                   interval: Optional[int] = None,
+                   sup_level: bool = False) -> np.ndarray:
+        return ancestry.prep_zmix5_store(self.store, input_z_df,
+                                         percentile, interval, sup_level)
+
+    def zmix(self, input_z_df: pd.DataFrame, percentile: float = 0.9,
+             interval: int = 10, level: str = "population") -> pd.DataFrame:
+        return ancestry.zmix_store(self.store, input_z_df, percentile,
+                                   interval, level)
 
     # -- region kernels ----------------------------------------------------
     def _padded_sizes(self, sizes) -> Tuple[int, ...]:
@@ -890,6 +984,85 @@ class RegionHandle:
                             info=out_info, type=typ)
                 self._frame = pd.DataFrame(cols, copy=False)
         return self._frame
+
+
+@dataclasses.dataclass
+class PreparedGenes:
+    """Gene-grouped join product for engine-resident jepeg/jepegmix.
+
+    Arrays are aligned to the geneid-sorted gene-SNP order; ``spans``
+    gives each gene's [start, end) slice and ``panel_rows`` the PanelStore
+    row of every gene SNP.  The selected populations' panel goes to the
+    engine's device once (per PreparedGenes) and every jepeg_region call
+    gathers its gene blocks there with K2."""
+
+    engine: GenomeEngine
+    zs: np.ndarray
+    infos: np.ndarray
+    rsids: np.ndarray
+    gids: np.ndarray
+    panel_rows: np.ndarray
+    spans: List[Tuple[int, int]]
+    gene_min_bp: np.ndarray
+    cw_rows: np.ndarray
+    cp_rows: np.ndarray
+    subj_cols: np.ndarray
+    pop_sizes: Tuple[int, ...]
+    wgts: Optional[Tuple[float, ...]]
+    _G_dev: Optional[torch.Tensor] = None
+
+    def _device_panel(self) -> torch.Tensor:
+        """The selected populations' int8 panel on the engine's device,
+        uploaded once: unpadded population segments (the gene statistics
+        slice them by segment_bounds(pop_sizes)), then zero columns up to
+        a multiple of 16, the row width K2 takes on a card."""
+        if self._G_dev is None:
+            G = self.engine.store.G
+            cols = self.subj_cols
+            S = len(cols)
+            Gh = np.zeros((G.shape[0], _round_up(max(S, 1), 16)),
+                          dtype=np.int8)
+            # one population or all of them: a column range, no copy
+            span = S and np.array_equal(cols, np.arange(cols[0],
+                                                        cols[0] + S))
+            Gh[:, :S] = G[:, cols[0]:cols[0] + S] if span else G[:, cols]
+            self._G_dev = torch.from_numpy(Gh).to(self.engine.device)
+        return self._G_dev
+
+    def _gene_inputs(self, gsel: np.ndarray):
+        """(panel row ids, W [6, n_g], z) per selected gene."""
+        spans = [self.spans[i] for i in gsel]
+        sqrt_info = np.sqrt(self.infos)
+        return ([self.panel_rows[s:e] for s, e in spans],
+                [(self.cw_rows[s:e] * sqrt_info[s:e, None]).T
+                 for s, e in spans],
+                [self.zs[s:e] for s, e in spans])
+
+    def _select(self, start_bp: Optional[int], end_bp: Optional[int]
+                ) -> np.ndarray:
+        lo = -np.inf if start_bp is None else start_bp
+        hi = np.inf if end_bp is None else end_bp
+        return np.flatnonzero((self.gene_min_bp >= lo)
+                              & (self.gene_min_bp <= hi))
+
+    def jepeg_region(self, start_bp: Optional[int] = None,
+                     end_bp: Optional[int] = None) -> pd.DataFrame:
+        """Gene tests for every gene whose FIRST SNP lies in [start_bp,
+        end_bp] (None: unbounded), so that chunked genome-wide runs
+        partition the gene set exactly (the reference loops genes
+        serially, src/jepegmix.cpp:122-139).  The O(n^2) per-gene work
+        (CorG, CovU, WWt, U) runs batched on the engine's device; only the
+        k <= 6 category pruning and chi-square stay on the host."""
+        gsel = self._select(start_bp, end_bp)
+        if len(gsel) == 0:
+            return empty_gene_frame()
+        idx, Ws, zs = self._gene_inputs(gsel)
+        stats6 = genekernels.gene_stats_resident(
+            self._device_panel(), idx, Ws, zs, self.pop_sizes, self.wgts,
+            lam=self.engine.settings.lambda_)
+        return run_gene_tests_stats(
+            self.zs, self.rsids, self.gids, [self.spans[i] for i in gsel],
+            stats6, self.cp_rows, self.engine.settings)
 
 
 def _build_corr_blocks_fn(pop_sizes, wgts):

@@ -45,6 +45,21 @@ _SIGNATURES = {
                                ctypes.c_longlong, ctypes.c_longlong,
                                ctypes.c_int, _P, _P, ctypes.c_int, _P],
     "gauss_weighted_gram_smem": [],
+    # probes/probe7_int4: (x, out, R, K, Kb, stream)
+    "gauss_pack_int4": [_P, _P, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_longlong, _P],
+    # (A, B, C, M, N, Kb, stream)
+    "gauss_int4_dot": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_longlong, _P],
+    # (row_bytes, rows_per_cta)
+    "gauss_resident_rowsum_smem": [ctypes.c_int, ctypes.c_int],
+    # (row_bytes, rows_per_cta, cluster, *smem_optin, *clusters)
+    "gauss_resident_rowsum_fit": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int),
+                                  ctypes.POINTER(ctypes.c_int)],
+    # (x, out, R, row_bytes, int4, cluster, stream)
+    "gauss_resident_rowsum": [_P, _P, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, ctypes.c_int, _P],
 }
 
 

@@ -8,6 +8,7 @@ import sys
 
 import numpy as np
 import pandas as pd
+import pytest
 
 from gauss_tpu.core import variants as j_variants
 from gauss_tpu.io import readers as j_readers
@@ -116,3 +117,50 @@ def test_package_imports_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 15
+
+
+def test_native_decoder_builds_and_decodes_like_gauss_tpu(synpanel,
+                                                          tmp_path,
+                                                          monkeypatch):
+    """The port compiles its own copy of the decoder (g++, zlib) and
+    decodes the conftest panel exactly as gauss_tpu's pure-Python reader
+    does; a source that does not compile raises with the compiler's
+    output when the decoder is required, and warns and falls back to
+    the Python reader when it is not."""
+    from gauss_tpu.io.panel import PanelReader as JReader
+    from gauss_tpu_torch.io import native
+    from gauss_tpu_torch.io.panel import PanelReader as TReader
+    from gauss_tpu_torch.io.panel import read_panel_index as t_index
+
+    so = native.build()
+    assert so.startswith(native.BUILD_DIR) and os.path.exists(so)
+    assert native.available()
+    desc = t_readers.read_pop_desc(synpanel.files.pop_desc_file)
+    fpos = t_index(synpanel.files.index_file)["fpos"].to_numpy()[::-3]
+    flags = np.zeros(desc.num_pops, dtype=np.int8)
+    flags[[0, 2, 3]] = 1
+    for kw in (dict(), dict(pop_flags=flags),
+               dict(want_genotypes=False)):
+        ref = JReader(synpanel.files.data_file, desc,
+                      use_native=False).decode_rows(fpos, **kw)
+        got = TReader(synpanel.files.data_file, desc,
+                      use_native=True).decode_rows(fpos, **kw)
+        for a, b in ((got.G, ref.G), (got.af, ref.af),
+                     (got.pop_sizes, ref.pop_sizes)):
+            if b is None:
+                assert a is None
+            else:
+                np.testing.assert_array_equal(a, b)
+
+    bad = tmp_path / "panel_decoder.cpp"
+    bad.write_text("this is not C++\n")
+    monkeypatch.setattr(native, "SRC", str(bad))
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_ERROR", None)
+    with pytest.warns(RuntimeWarning, match="g\\+\\+ failed"):
+        assert not native.available()
+    assert not TReader(synpanel.files.data_file, desc).use_native
+    with pytest.raises(RuntimeError, match="not C\\+\\+|error"):
+        TReader(synpanel.files.data_file, desc,
+                use_native=True).decode_rows(fpos[:3])

@@ -98,10 +98,15 @@ def test_simulate_ld_identical_for_a_seed(args):
 def test_exports():
     assert gauss_tpu_torch.computeLD is gauss_tpu_torch.compute_ld
     assert gauss_tpu_torch.simulateLD is gauss_tpu_torch.simulate_ld
-    for name in ("qcat", "qcatmix", "prep_qcat", "prep_recessive_impute"):
+    for name in ("qcat", "qcatmix", "prep_qcat", "prep_recessive_impute",
+                 "jepeg", "jepegmix", "afmix", "cpw2", "zmix", "prep_zmix",
+                 "prep_zmix2", "prep_zmix3", "prep_zmix4", "prep_zmix5",
+                 "prep_zmix5_sup", "fiqt", "pgc2_scz_anc_prop"):
         assert callable(getattr(gauss_tpu_torch, name))
+        assert callable(getattr(gauss_tpu, name))
+    assert isinstance(gauss_tpu_torch.PGC2_SCZ_ANC_Prop, pd.DataFrame)
     with pytest.raises(AttributeError):
-        gauss_tpu_torch.jepeg
+        gauss_tpu_torch.GenomeRunner     # the runner is not ported yet
 
 
 @pytest.fixture(scope="module")
