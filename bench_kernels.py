@@ -1,6 +1,7 @@
 #!/usr/bin/env python
-"""Time K1 and K2 on one CUDA card at the main path's shapes, beside
-another build of the same kernels and one PyTorch call for the same work.
+"""Time K1, K2, K3 and K4 on one CUDA card at the main path's and the
+probe's shapes, beside another build of the same kernels and one PyTorch
+call for the same work.
 
     python3 bench_kernels.py [--other DIR] [--reps N] [--out FILE]
 
@@ -17,14 +18,22 @@ each population padded to 64 columns: S = 34,176):
   of its 1 Mb core padded to 960.  Measured rows recur in two windows, as
   on the main path.
 
+- K3 at K1's yardstick shape (chip_smoke phase 9): A 55,040 x 34,176 and
+  B 1,280 x 34,176 in [-2, 2]; its product on the packed operands and its
+  packing pass apart;
+- K4 at the largest block of 43,008-value rows that fits one cluster,
+  int8 and int4, clusters of 1 and 8 (chip_smoke phase 9), timed on the
+  device alone (chip_smoke.device_ms: a call's host path is longer than
+  its device work).
+
 For each it prints the kernel's time (CUDA events, median of --reps after
 a warm-up), its bound (chip_smoke.bound: operations at the int8 peak or
 bytes at the HBM rate, whichever is longer) and one PyTorch call for the
-same work (torch._int_mm, torch.index_select).
+same work (torch._int_mm, torch.index_select, x.sum(1)).
 
 --other DIR: the root of another checkout (for example a parent commit
 unpacked with git archive).  Its gauss_tpu_torch/csrc/*.cu are built with
-this tree's nvcc flags, its K1 and K2 are timed in turns with this tree's
+this tree's nvcc flags, its kernels are timed in turns with this tree's
 (other, this, this, other), and their outputs are compared.  A build
 without gauss_weighted_gram_smem predates the source-ordered K2 and is
 called with that K2's arguments (G, idx, out, n, S, R, stream).
@@ -33,10 +42,8 @@ called with that K2's arguments (G, idx, out, n, S, R, stream).
 import argparse
 import contextlib
 import ctypes
-import glob
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
@@ -44,9 +51,10 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import (bound, cuda_ms, k1_bound,              # noqa: E402
+from chip_smoke import (bound, cuda_ms, device_ms, k1_bound,   # noqa: E402
                         k1_library_ms, log, phase_build, phase_device)
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
+from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.benchdata import POPS_33KG          # noqa: E402
 
 W = 43
@@ -69,26 +77,18 @@ def impute_like_rows(R=64_000, Mp=1280, Up=960, seed=0):
 def build_other(root):
     """ctypes library of another checkout's kernels, built with this
     tree's nvcc flags."""
-    srcs = sorted(glob.glob(os.path.join(root, "gauss_tpu_torch", "csrc",
-                                         "*.cu")))
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {root}")
+    srcs = _build._sources(os.path.join(root, "gauss_tpu_torch", "csrc"))
     out = os.path.join(root, "gauss_tpu_torch", "_build")
     os.makedirs(out, exist_ok=True)
     so = os.path.join(out, "libgauss_kernels_other.so")
-    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so,
-                           *srcs], capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {root}:\n{proc.stderr}")
-    for line in (proc.stdout + proc.stderr).splitlines():
+    for line in _build.compile_library(srcs, so).splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"  other ptxas: {line.strip()}")
     lib = ctypes.CDLL(so)
-    lib.gauss_weighted_gram_t1.argtypes = \
-        _build._SIGNATURES["gauss_weighted_gram_t1"]
-    lib.gauss_weighted_gram_t1.restype = ctypes.c_int
-    lib.gauss_gather_rows.argtypes = _build._SIGNATURES["gauss_gather_rows"]
-    lib.gauss_gather_rows.restype = ctypes.c_int
+    for name, argtypes in _build._SIGNATURES.items():
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = argtypes
+            getattr(lib, name).restype = ctypes.c_int
     if not hasattr(lib, "gauss_weighted_gram_smem"):
         P, L = ctypes.c_void_p, ctypes.c_longlong
         lib.gauss_gather_rows.argtypes = [P, P, P, L, L, L, P]
@@ -109,19 +109,19 @@ def using(lib):
         _build._LIB = own
 
 
-def turns(fn, other, reps, other_fn=None):
+def turns(fn, other, reps, other_fn=None, timer=cuda_ms):
     """Median ms of fn() with this tree's kernels and, given another
     library, of other_fn() (default fn) with its kernels, in turns other,
     this, this, other: (this ms, other ms or None), each the mean of its
-    two turns."""
+    two turns.  ``timer(fn, reps)`` gives ms (default: CUDA events)."""
     this = []
     prev = []
     for lib in ([other, None, None, other] if other else [None]):
         with using(lib or _build.library()):
             if lib:
-                prev.append(cuda_ms(other_fn or fn, reps))
+                prev.append(timer(other_fn or fn, reps))
             else:
-                this.append(cuda_ms(fn, reps))
+                this.append(timer(fn, reps))
     return (sum(this) / len(this),
             sum(prev) / len(prev) if prev else None)
 
@@ -141,6 +141,77 @@ def other_gather(lib, G, idx):
             "other gather_rows")
         return out
     return run
+
+
+def bench_k3(dev, g, other, reps):
+    """K3's product on packed operands and its packing pass at K1's
+    yardstick shape, in turns with the other build; outputs compared."""
+    M, N, K = 43 * 1280, 1280, 34176
+    A = torch.randint(-2, 3, (M, K), dtype=torch.int8, device=dev,
+                      generator=g)
+    B = torch.randint(-2, 3, (N, K), dtype=torch.int8, device=dev,
+                      generator=g)
+    width = p7.k3_width(K)
+    pa, pb = p7._pack(A, width), p7._pack(B, width)
+    ops = 2.0 * M * N * K
+    ms, other_ms = turns(lambda: p7._int4_dot_packed(pa, pb), other, reps)
+    pack_ms, other_pack = turns(
+        lambda: (p7._pack(A, width), p7._pack(B, width)), other, reps)
+    lib_ms = cuda_ms(lambda: torch._int_mm(A, B.t()), reps)
+    b_ms, b_by = bound(ops, (M + N) * width + 4.0 * M * N)
+    pk_ms, pk_by = bound(0.0, (M + N) * (K + width))
+    row = dict(product_ms=ms, other_product_ms=other_ms, bound_ms=b_ms,
+               bound_by=b_by, pack_ms=pack_ms, other_pack_ms=other_pack,
+               pack_bound_ms=pk_ms, library_ms=lib_ms,
+               share_of_bound=b_ms / ms)
+    msg = (f"K3 M={M} N={N} K={K}: product {ms:.3f} ms "
+           f"({ops / ms / 1e9:.1f} TOP/s), bound {b_ms:.3f} ms ({b_by}) = "
+           f"{b_ms / ms:.1%}; pack {pack_ms:.3f} ms, bound {pk_ms:.3f} ms "
+           f"({pk_by}) = {pk_ms / pack_ms:.1%}; torch._int_mm "
+           f"{lib_ms:.3f} ms")
+    if other:
+        got = p7._int4_dot_packed(pa, pb)
+        with using(other):
+            same = torch.equal(got, p7._int4_dot_packed(pa, pb))
+        row["equal_other"] = bool(same)
+        msg += (f"; other build: product {other_ms:.3f} ms "
+                f"({other_ms / ms:.2f}x), pack {other_pack:.3f} ms, "
+                f"outputs equal={same}")
+        if not same:
+            raise AssertionError("K3 differs from the other build's")
+        del got
+    log(msg)
+    del A, B, pa, pb
+    torch.cuda.empty_cache()
+    return row
+
+
+def bench_k4(dev, other):
+    """K4 at the largest block that fits (int8, int4; clusters of 1 and
+    8), on the device alone, in turns with the other build, beside
+    x.sum(1) on the int8 block."""
+    rng = np.random.default_rng(0)
+    x8 = torch.from_numpy(rng.integers(0, 3, (160, p7.ROW),
+                                       dtype=np.int8)).to(dev)
+    out = {}
+    for dtype in ("int8", "int4"):
+        blk = x8 if dtype == "int8" else p7.pack_int4(x8)
+        for c in (1, 8):
+            R = p7.capacity(blk.shape[1], c)[0] * c
+            x, xb = blk[:R].contiguous(), x8[:R].contiguous()
+            timer = lambda f, reps: device_ms(f)[0]
+            ms, other_ms = turns(lambda: p7.resident_rowsum(x, dtype, c),
+                                 other, 0, timer=timer)
+            lib_ms = device_ms(lambda: xb.sum(1, dtype=torch.int32))[0]
+            b_ms, b_by = bound(0.0, R * blk.shape[1] + R * 128 * 4.0)
+            out[f"{dtype} cluster {c}"] = dict(
+                rows=R, device_ms=ms, other_device_ms=other_ms,
+                bound_ms=b_ms, library_device_ms=lib_ms)
+            log(f"K4 {dtype} cluster {c}, {R} rows: {ms:.4f} ms on the "
+                f"device, bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%}, "
+                f"x.sum(1) {lib_ms:.4f} ms"
+                + (f"; other build {other_ms:.4f} ms" if other else ""))
+    return out
 
 
 def main():
@@ -232,6 +303,10 @@ def main():
         f"{ms:.3f} ms, bound {b_ms:.3f} ms ({b_by}) = {b_ms / ms:.1%}, "
         f"torch.index_select {lib_ms:.3f} ms"
         + (f"; other build {other_ms:.3f} ms" if other else ""))
+    del G, idx, clamped
+    torch.cuda.empty_cache()
+    results["k3"] = bench_k3(dev, g, other, args.reps)
+    results["k4"] = bench_k4(dev, other)
     print(json.dumps(results), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

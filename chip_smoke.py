@@ -51,13 +51,25 @@ Phases (each prints its evidence; any failure exits non-zero):
               (bit-equal, with its bound and yardstick); every gene
               against the same call on a CPU engine (chisq and p-values
               rtol 1e-9; df, geneid, top_categ, top_snp equal).
-9. probe7  -- K3 (int4 dot, the SASS instruction it compiled to) at the
-              TPU probe's shape (256 x 2048) and at K1's yardstick shape
-              (A 55,040 x 34,176, B 1,280 x 34,176), and K4 (resident row
-              sums) at every size that fits one cluster (int8 and int4,
+9. probe7  -- the probe's own entry point (probes/probe7_int4.main: the
+              TPU probe's int4 check, the largest resident blocks in
+              clusters of 1, 8 and 16), whose K3 and K4 launch counts
+              must rise; then K3 (int4 dot, the SASS tensor-core
+              instructions it compiled to: integer wgmma, IGMMA, and no
+              IMMA) at the TPU probe's shape (256 x 2048), at K1's
+              yardstick shape (A 55,040 x 34,176, B 1,280 x 34,176) and
+              at the GPU tests' edge shapes, and K4 (resident row sums)
+              at every size that fits one cluster (int8 and int4,
               cluster 1 and 8; the capacities from the occupancy
               queries), each against its plain version, exactly, with
-              its time, bound and yardstick (torch._int_mm; x.sum).
+              its time, bound and yardstick (torch._int_mm; x.sum).  At
+              K1's shape K3's product and its packing pass are timed
+              apart.
+
+Calls shorter than SHORT_MS (K2 on the gene buckets, K3 at the probe
+shape, K4, and their yardsticks) are timed twice: per call with CUDA
+events, host included (cuda_ms), and on the device alone from
+torch.profiler's kernel records (device_ms), which names the kernels.
 
 Each path's kernel launch counts are set to 0 just before it runs and
 read just after.  The line before the last is a JSON object
@@ -79,6 +91,8 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -110,6 +124,8 @@ GENE_RTOL = 1e-9         # float64 gene statistics, card vs CPU
 N_GENES, GENE_SNPS = 280, 24   # ~6.5 genes per Mb over the 43 Mb region
 STUDY_POP = "CEU"        # jepeg's one population (the largest)
 WARM_S = 0.05            # warm-up seconds before each timing
+SHORT_MS = 0.2           # calls shorter than this are also timed on the
+                         # device alone (device_ms)
 # published peaks of one H100 SXM (dense int8 tensor-core rate, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
@@ -152,6 +168,62 @@ def cuda_ms(fn, reps):
         b.record()
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def device_ms(fn, reps=50):
+    """(milliseconds per call on the device alone, {kernel short_name: ms
+    per call}): the CUDA kernels torch.profiler records over ``reps`` calls
+    enqueued back to back after a warm-up call, their host path left out.
+    Raises if the profiler records no device time."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            us = e.self_cuda_time_total if us is None else us
+            if us > 0:
+                kernels[short_name(e.key)] = us / 1e3 / reps
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device time")
+    return sum(kernels.values()), kernels
+
+
+def short_name(kernel):
+    """A kernel's name without "void", an anonymous namespace or its
+    argument list, cut to 80 characters."""
+    k = kernel.replace("(anonymous namespace)::", "").removeprefix("void ")
+    depth = 0
+    for i, ch in enumerate(k):
+        depth += {"<": 1, ">": -1}.get(ch, 0)
+        if ch == "(" and depth == 0:
+            k = k[:i]
+            break
+    return k[:80]
+
+
+def device_times(fn, lib_fn):
+    """device_ms of a kernel's wrapper and of its yardstick, as row keys."""
+    d, dk = device_ms(fn)
+    ld, lk = device_ms(lib_fn)
+    return dict(device_ms=d, device_kernels=dk, library_device_ms=ld,
+                library_kernels=lk)
+
+
+def fmt_device(t):
+    """The device-only part of a check's log line."""
+    if "device_ms" not in t:
+        return ""
+    names = lambda ks: ", ".join(f"{k} {v:.4f}" for k, v in ks.items())
+    return (f"; on the device alone (torch.profiler): wrapper "
+            f"{t['device_ms']:.4f} ms ({names(t['device_kernels'])}), "
+            f"yardstick {t['library_device_ms']:.4f} ms "
+            f"({names(t['library_kernels'])})")
 
 
 def phase_device():
@@ -347,18 +419,22 @@ def k2_check(label, G, rows, reps=5):
     n_real = int((idx >= 0).sum())
     n_distinct = int(torch.unique(idx[idx >= 0]).numel())
     b_ms, b_by = bound(0.0, (n_distinct + N) * S)
+    dev = (device_times(lambda: gather.gather_rows(G, idx),
+                        lambda: torch.index_select(G, 0, clamped))
+           if min(ms, lib) < SHORT_MS else {})
     log(f"K2 {label}: R={G.shape[0]} S={S} N={N} ({N - n_real} "
         f"sentinels, {n_distinct} distinct rows): bit-equal={equal}; "
-        f"kernel {ms:.3f} ms "
+        f"kernel {ms:.3f} ms per call "
         f"({2.0 * N * S / ms / 1e6:.0f} GB/s read+write), bound "
         f"{b_ms:.3f} ms ({b_by}) = {b_ms / ms:.1%} of bound, "
-        f"torch.index_select {lib:.3f} ms, plain {pms:.3f} ms")
+        f"torch.index_select {lib:.3f} ms, plain {pms:.3f} ms"
+        f"{fmt_device(dev)}")
     if not equal:
         raise AssertionError(f"K2 {label} differs from its plain version")
     del clamped
     torch.cuda.empty_cache()
     return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+                bound_by=b_by, library_ms=lib, **dev)
 
 
 def segments(run):
@@ -704,9 +780,35 @@ def phase_jepeg(engine, reps=3):
     return total, out
 
 
+def phase_probe_path():
+    """The probe's own entry point (python -m
+    gauss_tpu_torch.probes.probe7_int4), with the counts set to 0 just
+    before it and read just after: K3 and K4 must run in it."""
+    reset_counts()
+    rc = p7.main()
+    counts = read_counts()
+    log(f"probe7 main() exit {rc}; launches during it: {counts}")
+    if rc != 0:
+        raise AssertionError("the probe's own checks failed")
+    if counts["int4_dot"] < 1 or counts["resident_rowsum"] < 1:
+        raise AssertionError("the probe did not launch K3 and K4")
+    return counts
+
+
+# K3's edge shapes, as in tests/test_torch_probe7.py's GPU tests: M, N and
+# K off every tile and box edge, K not a multiple of the 256-value box (or
+# below one box) and K a multiple of it, an odd number of 128-column tiles
+# (a pair's second tile empty), 1 x 1 x 1, the bench width
+K3_EDGES = [(130, 70, 300), (1, 1, 1), (300, 129, 2049), (64, 64, 32),
+            (130, 129, 4352), (257, 300, 1000), (1000, 257, 34176)]
+# int4's ends: -8 x -8 and 7 x -8 in every product
+K3_EXTREMES = [(-8, -8), (7, -8)]
+
+
 def sass_mma(kernel):
-    """Counts of the tensor-core instructions (IMMA/HMMA) in the SASS of
-    one kernel of the built library (cuobjdump)."""
+    """Counts of the tensor-core instructions in the SASS of one kernel of
+    the built library (cuobjdump): mma.sync's IMMA/HMMA and wgmma's
+    IGMMA/HGMMA."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     so = [f for f in glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))
           if os.path.basename(f).startswith("libgauss_kernels_")]
@@ -715,34 +817,82 @@ def sass_mma(kernel):
                           timeout=300).stdout
     body = next(f for f in sass.split("Function : ") if kernel in
                 f.split("\n", 1)[0])
-    return dict(collections.Counter(re.findall(r"\b[IH]MMA[.\w]*", body)))
+    return dict(collections.Counter(re.findall(r"\b[IH]G?MMA[.\w]*", body)))
 
 
-def k3_check(label, a, b, reps=5, plain_reps=2):
+def k3_check(label, a, b, reps=5, plain_reps=2, parts=False):
     """K3 against its plain version (exact), timed beside its bound and
-    torch._int_mm on the int8 operands."""
+    torch._int_mm on the int8 operands.  With ``parts``, K3's product on
+    the packed operands and its packing pass are also timed apart, each
+    beside its own bound (the product: its operations, or the packed
+    operands read once and C written once; the pack: the int8 operands
+    read once and the packed ones written once)."""
     got = p7.int4_dot(a, b)
     equal = bool(torch.equal(got, p7.int4_dot_plain(a, b)))
     del got
     (M, K), N = a.shape, b.shape[0]
+    ops = 2.0 * M * N * K
     ms = cuda_ms(lambda: p7.int4_dot(a, b), reps)
     pms = cuda_ms(lambda: p7.int4_dot_plain(a, b), plain_reps)
     lib = cuda_ms(lambda: torch._int_mm(a, b.t()), reps)
-    b_ms, b_by = bound(2.0 * M * N * K, M * K + N * K + 4.0 * M * N)
-    log(f"K3 int4_dot {label}: M={M} N={N} K={K}: exact={equal}; kernel "
-        f"{ms:.3f} ms ({2.0 * M * N * K / ms / 1e9:.1f} TOP/s), bound "
-        f"{b_ms:.3f} ms ({b_by}, int8 peak) = {b_ms / ms:.1%} of bound, "
-        f"torch._int_mm {lib:.3f} ms, plain {pms:.3f} ms")
+    b_ms, b_by = bound(ops, M * K + N * K + 4.0 * M * N)
+    row = dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
+               bound_by=b_by, library_ms=lib)
+    msg = (f"K3 int4_dot {label}: M={M} N={N} K={K}: exact={equal}; "
+           f"pack + product {ms:.3f} ms per call ({ops / ms / 1e9:.1f} "
+           f"TOP/s), bound {b_ms:.3f} ms ({b_by}, int8 peak) = "
+           f"{b_ms / ms:.1%} of bound, torch._int_mm {lib:.3f} ms, plain "
+           f"{pms:.3f} ms")
+    if parts:
+        width = p7.k3_width(K)
+        pa, pb = p7._pack(a, width), p7._pack(b, width)
+        prod = cuda_ms(lambda: p7._int4_dot_packed(pa, pb), reps)
+        pack = cuda_ms(lambda: (p7._pack(a, width), p7._pack(b, width)),
+                       reps)
+        pr_ms, pr_by = bound(ops, (M + N) * width + 4.0 * M * N)
+        pk_ms, pk_by = bound(0.0, (M + N) * (K + width))
+        row.update(product_ms=prod, product_bound_ms=pr_ms,
+                   product_bound_by=pr_by, pack_ms=pack,
+                   pack_bound_ms=pk_ms, pack_bound_by=pk_by)
+        msg += (f"; product on packed operands ({width} B rows) {prod:.3f} "
+                f"ms ({ops / prod / 1e9:.1f} TOP/s), bound {pr_ms:.3f} ms "
+                f"({pr_by}) = {pr_ms / prod:.1%}; packing pass {pack:.3f} "
+                f"ms, bound {pk_ms:.3f} ms ({pk_by}) = {pk_ms / pack:.1%}")
+        del pa, pb
+    if min(ms, lib) < SHORT_MS:
+        row.update(device_times(lambda: p7.int4_dot(a, b),
+                                lambda: torch._int_mm(a, b.t())))
+    log(msg + fmt_device(row))
     if not equal:
         raise AssertionError(f"K3 {label} differs from its plain version")
     torch.cuda.empty_cache()
-    return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=lib)
+    return row
+
+
+def k3_edges(dev):
+    """K3 exactly against its plain version at the edge shapes and at
+    int4's ends."""
+    rng = np.random.default_rng(1)
+    for M, N, K in K3_EDGES:
+        a = torch.from_numpy(rng.integers(-8, 8, (M, K), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-8, 8, (N, K), dtype=np.int8))
+        a, b = a.to(dev), b.to(dev)
+        if not torch.equal(p7.int4_dot(a, b), p7.int4_dot_plain(a, b)):
+            raise AssertionError(f"K3 differs from its plain version at "
+                                 f"M={M} N={N} K={K}")
+    for va, vb in K3_EXTREMES:
+        a = torch.full((130, 4099), va, dtype=torch.int8, device=dev)
+        b = torch.full((200, 4099), vb, dtype=torch.int8, device=dev)
+        if not bool((p7.int4_dot(a, b) == va * vb * 4099).all()):
+            raise AssertionError(f"K3 wrong at {va} x {vb}")
+    log(f"K3 exact at the edge shapes (M, N, K) {K3_EDGES} and at "
+        f"{K3_EXTREMES} over 130 x 200 x 4099")
 
 
 def k4_check(dtype, cluster, x8, reps=5):
     """K4 at every size that fits one cluster, exactly, then timed at the
-    largest beside its bound and x.sum(1) on the int8 block."""
+    largest beside its bound and x.sum(1) on the int8 block: per call
+    (CUDA events, host included) and on the device alone."""
     blk = x8 if dtype == "int8" else p7.pack_int4(x8)
     row_bytes = blk.shape[1]
     k, optin, n = p7.capacity(row_bytes, cluster)
@@ -756,41 +906,50 @@ def k4_check(dtype, cluster, x8, reps=5):
     ms = cuda_ms(lambda: p7.resident_rowsum(x, dtype, cluster), reps)
     pms = cuda_ms(lambda: p7.resident_rowsum_plain(x, dtype), reps)
     lib = cuda_ms(lambda: xb.sum(1, dtype=torch.int32), reps)
+    dev = device_times(lambda: p7.resident_rowsum(x, dtype, cluster),
+                       lambda: xb.sum(1, dtype=torch.int32))
     b_ms, b_by = bound(0.0, R * row_bytes + R * 128 * 4.0)
     log(f"K4 resident_rowsum {dtype} cluster {cluster}: {k} rows/CTA = "
         f"{k * row_bytes / 1024:.1f} KiB of {optin / 1024:.1f} KiB, {R} "
         f"rows = {R * row_bytes / 1024:.1f} KiB per cluster, {n} clusters "
         f"at once; sizes 1..{R} exact={not bad}; at {R} rows kernel "
-        f"{ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}) = {b_ms / ms:.1%} of "
-        f"bound, x.sum(1) {lib:.4f} ms, plain {pms:.4f} ms")
+        f"{ms:.4f} ms per call, bound {b_ms:.4f} ms ({b_by}) = "
+        f"{b_ms / ms:.1%} of bound, x.sum(1) {lib:.4f} ms, plain "
+        f"{pms:.4f} ms{fmt_device(dev)}; device-only share of bound "
+        f"{b_ms / dev['device_ms']:.1%}")
     if bad:
         raise AssertionError(f"K4 {dtype} cluster {cluster} wrong at "
                              f"{bad[:5]} rows")
     return dict(max_abs_err=0.0, ms=ms, plain_ms=pms, bound_ms=b_ms,
                 bound_by=b_by, library_ms=lib, rows=R, rows_per_cta=k,
-                clusters_at_once=n)
+                clusters_at_once=n, **dev)
 
 
 def phase_probe7(dev):
     """Probe 7's kernels against their plain versions: K3 at the TPU
-    probe's shape and at K1's yardstick shape, K4 at every size that fits
-    (int8 and int4, clusters of 1 and 8).  These launches check and time
-    the kernels: no path of the system runs them, so none is counted."""
+    probe's shape, at K1's yardstick shape and at the edge shapes, K4 at
+    every size that fits (int8 and int4, clusters of 1 and 8).  These
+    launches check and time the kernels: no path of the system runs them,
+    so none is counted."""
     ops = sass_mma("int4_dot_kernel")
     log(f"K3 SASS tensor-core instructions: {ops}")
+    if not any(op.startswith("IGMMA") for op in ops) or \
+            any(op.startswith("IMMA") for op in ops):
+        raise AssertionError("K3 did not compile to integer wgmma alone")
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.integers(-2, 3, (256, 2048),
                                       dtype=np.int8)).to(dev)
     b = torch.from_numpy(rng.integers(-2, 3, (256, 2048),
                                       dtype=np.int8)).to(dev)
     k3 = {"probe 256x2048": k3_check("probe shape 256 x 2048", a, b)}
+    k3_edges(dev)
     g = torch.Generator(device=dev).manual_seed(0)
     A = torch.randint(-2, 3, (43 * 1280, 34176), dtype=torch.int8,
                       device=dev, generator=g)
     B = torch.randint(-2, 3, (1280, 34176), dtype=torch.int8, device=dev,
                       generator=g)
     k3["K1 yardstick 55040x1280x34176"] = k3_check(
-        "K1 yardstick shape", A, B)
+        "K1 yardstick shape", A, B, parts=True)
     del A, B
     torch.cuda.empty_cache()
     x8 = torch.from_numpy(rng.integers(0, 3, (160, p7.ROW),
@@ -824,6 +983,7 @@ def main():
     del run
     torch.cuda.empty_cache()
     jepeg_launches, jepeg = phase_jepeg(engine)
+    probe_launches = phase_probe_path()
     k3, k4, k3_sass = phase_probe7(dev)
 
     routes = {
@@ -855,7 +1015,13 @@ def main():
            "int4_dot": k3["K1 yardstick 55040x1280x34176"],
            "resident_rowsum": k4["int8 cluster 8"]}
     by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
-               "jepeg": jepeg_launches}
+               "jepeg": jepeg_launches, "probe7": probe_launches}
+    # the path each row's "launches" counts: the main path for K1 and K2,
+    # the probe for K3 and K4
+    own = {"weighted_gram_t1": launches, "gather_rows": launches,
+           "int4_dot": probe_launches, "resident_rowsum": probe_launches}
+    extra = ("product_ms", "product_bound_ms", "pack_ms", "pack_bound_ms",
+             "device_ms", "library_device_ms")
     rows = []
     for kname, (src, replaces) in routes.items():
         if not os.path.exists(os.path.join(HERE, src)):
@@ -863,11 +1029,12 @@ def main():
         flat = [c for v in checked[kname].values()
                 for c in (v.values() if "ms" not in v else [v])]
         row = {"name": kname, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": launches.get(kname, 0),
+               "replaces": replaces, "launches": own[kname].get(kname, 0),
                "launches_by_path": {p: c.get(kname, 0)
                                     for p, c in by_path.items()},
                **{k: top[kname][k] for k in ("ms", "plain_ms", "bound_ms",
                                              "bound_by", "library_ms")},
+               **{k: top[kname][k] for k in extra if k in top[kname]},
                "max_abs_err": max(c["max_abs_err"] for c in flat),
                "checked_by_path": checked[kname]}
         if kname == "int4_dot":

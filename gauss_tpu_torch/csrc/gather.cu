@@ -37,37 +37,14 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int kPieceMax = 36864;         // bytes per bulk copy, at most
 constexpr int kStages = 4;               // ring slots
 constexpr int kAhead = 2;                // loads in flight
 constexpr int kSmem = (kStages + 1) * kPieceMax + kStages * 8;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n"
-      "}\n"
-      : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// A phase that never completes is a fault: trap after ~10 s instead of
-// hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - t0 > (1LL << 34)) __trap();
-}
 
 struct Pieces {
   const int8_t* G;
@@ -104,9 +81,7 @@ gather_rows_kernel(Pieces pc, int64_t n_pieces) {
     reinterpret_cast<int4*>(zero)[c] = make_int4(0, 0, 0, 0);
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s)
-      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
-                   :: "r"(smem_u32(&full[s])) : "memory");
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
@@ -122,19 +97,11 @@ gather_rows_kernel(Pieces pc, int64_t n_pieces) {
     int len;
     pc.at(j, src, dst, len);
     const int s = static_cast<int>(j % kStages);
-    const uint32_t bar = smem_u32(&full[s]);
     if (src != nullptr) {
-      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                   :: "r"(bar), "r"(len) : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n"
-          :: "r"(smem_u32(smem + s * kPieceMax)), "l"(src), "r"(len),
-             "r"(bar)
-          : "memory");
+      mbar_expect_tx(&full[s], len);
+      bulk_load(smem + s * kPieceMax, src, len, &full[s]);
     } else {
-      asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
-                   :: "r"(bar) : "memory");
+      mbar_arrive(&full[s]);
     }
   };
   for (int64_t j = 0; j < kAhead && j < mine; ++j) load(j);

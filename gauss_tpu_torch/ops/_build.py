@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ``ctypes``.  No
+Every ``csrc/*.cu`` file is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per file, all started together) and the objects are linked into
+one shared library with a plain C interface, loaded with ``ctypes``.  No
 PyTorch header is included, so a build takes seconds.  The library lives
-in ``gauss_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags: an unchanged tree loads the existing build.  A failed build
-raises with nvcc's output; nothing falls back to the plain versions.
+in ``gauss_tpu_torch/_build/`` under a name keyed by a hash of the sources,
+the headers they share (``csrc/*.cuh``) and the flags: an unchanged tree
+loads the existing build.  A failed build raises with nvcc's output;
+nothing falls back to the plain versions.
 
 Nothing here runs at import time: ``library()`` builds on first use.
 """
@@ -25,7 +27,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LIB: Optional[ctypes.CDLL] = None
 #: seconds the last ``library()`` call spent compiling (0.0 on a cache hit)
@@ -75,11 +77,50 @@ def _nvcc() -> str:
                        "use")
 
 
-def _sources():
-    srcs = sorted(glob.glob(os.path.join(SRC_DIR, "*.cu")))
+def _sources(src_dir=SRC_DIR):
+    srcs = sorted(glob.glob(os.path.join(src_dir, "*.cu")))
     if not srcs:
-        raise RuntimeError(f"no CUDA sources under {SRC_DIR}")
+        raise RuntimeError(f"no CUDA sources under {src_dir}")
     return srcs
+
+
+def _headers(src_dir=SRC_DIR):
+    return sorted(glob.glob(os.path.join(src_dir, "*.cuh")))
+
+
+def compile_library(srcs, so: str) -> str:
+    """Compile ``srcs`` into the shared library ``so``: one ``nvcc -c`` per
+    source, all running at once, then one link.  Returns nvcc's output
+    (ptxas's registers and shared memory per kernel); raises on failure."""
+    procs = []
+    for s in srcs:
+        obj = f"{so}.{os.path.basename(s)}.o"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, s]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log = []
+    failed = None
+    for cmd, _, p in procs:
+        out = p.communicate()[0]
+        log.append(out)
+        if p.returncode != 0 and failed is None:
+            failed = "nvcc failed (exit %d): %s\n%s" % (
+                p.returncode, " ".join(cmd), out)
+    objs = [obj for _, obj, _ in procs]
+    try:
+        if failed:
+            raise RuntimeError(failed)
+        cmd = [_nvcc(), "-shared", "-o", so, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError("nvcc link failed (exit %d): %s\n%s\n%s" % (
+                proc.returncode, " ".join(cmd), proc.stdout, proc.stderr))
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
 
 
 def library() -> ctypes.CDLL:
@@ -89,24 +130,18 @@ def library() -> ctypes.CDLL:
         return _LIB
     srcs = _sources()
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
+    for s in srcs + _headers():
         with open(s, "rb") as fh:
             h.update(os.path.basename(s).encode() + b"\0" + fh.read())
     so = os.path.join(BUILD_DIR, f"libgauss_kernels_{h.hexdigest()[:16]}.so")
     if not os.path.exists(so):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{so}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (exit %d): %s\n%s\n%s" % (
-                    proc.returncode, " ".join(cmd), proc.stdout,
-                    proc.stderr))
+        log = compile_library(srcs, tmp)
         os.replace(tmp, so)    # atomic: a concurrent loader sees all or none
         build_seconds = time.perf_counter() - t0
-        build_log = proc.stdout + proc.stderr
+        build_log = log
     lib = ctypes.CDLL(so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

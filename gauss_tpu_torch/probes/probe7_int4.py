@@ -7,14 +7,16 @@ The two kernels are ``csrc/probe7_int4.cu``, replacing the two Pallas
 TPU kernels of ``probes/probe7_int4.py``:
 
 * K3 ``int4_dot(a, b)`` (replaces ``g``): exact int32 ``a @ b.T`` of two
-  int8 matrices cast to int4, read as packed nibbles (``pack_int4``; the
-  packing pass is a kernel the wrapper launches) and multiplied with
-  ``mma.sync m16n8k64 s4`` -- Hopper's ``wgmma`` takes no 4-bit operand.
+  int8 matrices cast to int4.  The wrapper packs both operands to nibbles
+  (a kernel of its own) and ``_int4_dot_packed`` multiplies them: packed
+  int4 through HBM, L2 and the TMA ring, widened to s8 on the chip and
+  multiplied by ``wgmma`` s8 (Hopper's ``wgmma`` takes no 4-bit operand).
+  ``widen_int4_plain`` writes the s8 values in the kernel's order of K.
 * K4 ``resident_rowsum(x, dtype, cluster)`` (replaces ``h``): int32 row
   sums broadcast to 128 columns, over a block staged whole in the shared
-  memory of one cluster of ``cluster`` CTAs; each CTA sums the rows its
-  neighbour holds, through distributed shared memory.  ``capacity`` asks
-  the card (occupancy queries, no launch) how many rows fit.
+  memory of one cluster of ``cluster`` CTAs; each warp sums whole rows of
+  its own CTA as soon as they land.  ``capacity`` asks the card
+  (occupancy queries, no launch) how many rows fit.
 
 CUDA tensors launch the kernels, CPU tensors take the plain versions
 (``int4_dot_plain``, ``resident_rowsum_plain``), any other device raises.
@@ -39,8 +41,10 @@ launches: Dict[str, int] = {"int4_dot": 0, "resident_rowsum": 0}
 
 #: the probe's row width: 42 K tiles of 1024 subject columns
 ROW = 43008
-#: bytes per packed row that K3 reads: a multiple of its 64-byte K step
-_K3_ROW_BYTES = 64
+#: bytes per packed row that K3 reads: a multiple of 16 (its tensor
+#: maps' row stride); its K box is 128 bytes, zero-filled past the row
+_K3_ROW_BYTES = 16
+_K3_BOX = 128
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -135,10 +139,72 @@ def int4_dot_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
+def _widen_words(w: torch.Tensor) -> torch.Tensor:
+    """The low nibbles of each byte of int64-held 32-bit words,
+    sign-extended to s8 bytes: K3's widening, word for word (0xF0 added to
+    each nibble whose sign bit is set)."""
+    return (w & 0x0F0F0F0F) + (w & 0x08080808) * 0x1E
+
+
+def widen_int4_plain(p: torch.Tensor) -> torch.Tensor:
+    """uint8 [R, Kb] packed nibbles -> int8 [R, 256 * ceil(Kb / 128)]: the
+    s8 values in the order of K that K3's kernel gives them on the chip
+    (zeros past Kb, as its tensor maps fill).  In each 128-byte box,
+    packed byte 32 t + 4 s + i (t, i < 4, s < 8) holds values
+    2 (32 t + 4 s + i) and + 1; its low nibble goes to position
+    32 s + 4 t + i, its high nibble to 32 s + 16 + 4 t + i.  One order of K
+    for both operands leaves every dot product as it is."""
+    R, Kb = p.shape
+    nb = -(-Kb // _K3_BOX)
+    q = torch.zeros((R, nb * _K3_BOX), dtype=torch.uint8, device=p.device)
+    q[:, :Kb] = p
+    w = q.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    # [R, box, t, s] words -> [R, box, t, s, plane, byte]
+    planes = torch.stack([_widen_words(w), _widen_words(w >> 4)], dim=-1)
+    v = torch.stack([(planes >> (8 * i)) & 0xFF for i in range(4)], dim=-1)
+    v = v.reshape(R, nb, 4, 8, 2, 4).permute(0, 1, 3, 4, 2, 5)
+    return v.reshape(R, nb * 2 * _K3_BOX).to(torch.uint8).view(torch.int8)
+
+
+def _int4_dot_packed(pa: torch.Tensor, pb: torch.Tensor) -> torch.Tensor:
+    """int32 [M, N] product of packed int4 operands pa [M, Kb] and
+    pb [N, Kb] (uint8, ``pack_int4``'s format): K3's product alone, without
+    the packing pass.  On a card Kb % 16 == 0 (the tensor maps' row
+    stride); on the CPU the plain version multiplies the widened values."""
+    for name, x in (("pa", pa), ("pb", pb)):
+        if x.dtype != torch.uint8 or x.dim() != 2:
+            raise TypeError(f"{name} must be a 2-D uint8 tensor of packed "
+                            f"nibbles, got {x.dtype} {tuple(x.shape)}")
+    if pa.shape[1] != pb.shape[1]:
+        raise ValueError(f"Kb differs: {tuple(pa.shape)} vs "
+                         f"{tuple(pb.shape)}")
+    (M, Kb), N = pa.shape, pb.shape[0]
+    if _device_kind(pa, pb) == "cpu":
+        A = widen_int4_plain(pa).to(torch.int64)
+        B = widen_int4_plain(pb).to(torch.int64)
+        return (A @ B.T).to(torch.int32)
+    if Kb % _K3_ROW_BYTES or not (pa.is_contiguous() and pb.is_contiguous()):
+        raise ValueError(f"int4 product needs contiguous rows of a multiple "
+                         f"of {_K3_ROW_BYTES} bytes, got {Kb}")
+    out = torch.empty((M, N), dtype=torch.int32, device=pa.device)
+    with torch.cuda.device(pa.device):
+        err = _build.library().gauss_int4_dot(
+            pa.data_ptr(), pb.data_ptr(), out.data_ptr(), M, N, Kb,
+            torch.cuda.current_stream(pa.device).cuda_stream)
+    _build.check(err, "int4_dot")
+    launches["int4_dot"] += 1
+    return out
+
+
+def k3_width(K: int) -> int:
+    """Bytes per packed row that ``int4_dot`` gives K3 for K values."""
+    return _ceil_to(max(-(-K // 2), 1), _K3_ROW_BYTES)
+
+
 def int4_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """int32 [M, N] = int4(a) @ int4(b).T for int8 a [M, K], b [N, K],
-    exact.  On a card both operands are packed (K padded to a multiple of
-    128 nibbles) and multiplied by the s4 mma kernel."""
+    exact.  On a card both operands are packed (rows padded with zero
+    nibbles to a multiple of 16 bytes) and multiplied by K3."""
     _check_int8_2d("a", a)
     _check_int8_2d("b", b)
     if a.shape[1] != b.shape[1]:
@@ -147,17 +213,8 @@ def int4_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return int4_dot_plain(a, b)
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("int4_dot needs contiguous operands")
-    (M, K), N = a.shape, b.shape[0]
-    width = _ceil_to(max(-(-K // 2), 1), _K3_ROW_BYTES)
-    pa, pb = _pack(a, width), _pack(b, width)
-    out = torch.empty((M, N), dtype=torch.int32, device=a.device)
-    with torch.cuda.device(a.device):
-        err = _build.library().gauss_int4_dot(
-            pa.data_ptr(), pb.data_ptr(), out.data_ptr(), M, N, width,
-            torch.cuda.current_stream(a.device).cuda_stream)
-    _build.check(err, "int4_dot")
-    launches["int4_dot"] += 1
-    return out
+    width = k3_width(a.shape[1])
+    return _int4_dot_packed(_pack(a, width), _pack(b, width))
 
 
 # ---------------------------------------------------------------- K4
@@ -170,6 +227,7 @@ def _rowsum_check(x: torch.Tensor, dtype: str) -> None:
         raise TypeError(f"a {dtype} block is a 2-D {want} tensor"
                         f"{' (pack_int4)' if dtype == 'int4' else ''}, got "
                         f"{x.dtype} {tuple(x.shape)}")
+    _device_kind(x)
 
 
 def resident_rowsum_plain(x: torch.Tensor, dtype: str = "int8"
@@ -187,16 +245,18 @@ def resident_rowsum(x: torch.Tensor, dtype: str = "int8",
     """resident_rowsum_plain's result, computed on a card by one cluster
     of ``cluster`` CTAs (1..16) that holds the whole block in shared
     memory; raises if the block does not fit (see ``capacity``).
-    Rows are 16-byte multiples: S % 16 == 0 (S / 2 for int4)."""
+    Rows are 16-byte multiples: S % 16 == 0 (S / 2 for int4).  The
+    arguments are checked on every device; a CPU block then takes the
+    plain version."""
     _rowsum_check(x, dtype)
-    if _device_kind(x) == "cpu":
-        return resident_rowsum_plain(x, dtype)
     if not 1 <= cluster <= 16:
         raise ValueError(f"cluster must be 1..16, got {cluster}")
     R, row_bytes = x.shape
-    if row_bytes % 16 or not x.is_contiguous():
-        raise ValueError(f"rows of {row_bytes} bytes: need a contiguous "
-                         f"block with 16-byte multiple rows")
+    if R < 1 or row_bytes % 16 or not x.is_contiguous():
+        raise ValueError(f"{R} rows of {row_bytes} bytes: need a contiguous "
+                         f"block of at least one row, 16-byte multiple rows")
+    if x.device.type == "cpu":
+        return resident_rowsum_plain(x, dtype)
     out = torch.empty((R, 128), dtype=torch.int32, device=x.device)
     with torch.cuda.device(x.device):
         err = _build.library().gauss_resident_rowsum(
@@ -248,8 +308,8 @@ def main() -> int:
     want = torch.from_numpy(a8.astype(np.int64) @ b8.astype(np.int64).T)
     got = int4_dot(torch.from_numpy(a8).to(dev), torch.from_numpy(b8).to(dev))
     ok = bool(torch.equal(got.cpu().to(torch.int64), want))
-    print(f"int4 dot (mma.sync m16n8k64 s4) 256 x 2048: exact={ok}",
-          flush=True)
+    print(f"int4 dot (packed int4 widened to s8, wgmma) 256 x 2048: "
+          f"exact={ok}", flush=True)
 
     # (b) the largest resident block per dtype and cluster size, each size
     # up to it checked exactly against the plain version
