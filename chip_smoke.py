@@ -66,6 +66,51 @@ Phases (each prints its evidence; any failure exits non-zero):
               K1's shape K3's product and its packing pass are timed
               apart.
 
+10. runner -- models/runner.GenomeRunner on the same store and engine, in
+              temporary run directories: analysis "impute" over the whole
+              region in chunks of whole windows (at least 5 chunks at the
+              full size): K1 and K2 must launch, every chunk ends "done",
+              collect() has the rows of phase 3's whole-region call with z
+              and info within SAME_TOL (the same windows through the same
+              kernels, in batches of another size); a second
+              run(resume=True) skips every chunk and launches no kernel;
+              a run with one chunk made to fail
+              records the failure against that chunk, finishes the others,
+              and its resume retries that chunk alone.  The same chunks
+              one by one through the blocking impute_region, and one
+              chunk's batch build timed apart, stand beside the run's
+              wall.  Then analysis "qcat", "ld" (the first LD_CHUNKS
+              chunks: its walls are the host's) and "jepeg" (phase 8's
+              annotation), each against the engine call of phase 7, 6 or
+              8.  Per analysis: chunks, wall, rate, per-chunk elapsed,
+              peak device memory.  Results of the same windows through
+              the same kernels in a batch of another size are held to
+              SAME_TOL in z and info (f32 rounding: the batched routines
+              differ per batch count), LD to one int16 step.
+11. stream -- the first STREAM_SNPS SNPs of the store at every subject,
+              written as bgzf files (io/panel.write_panel), then the
+              runner with panel_files= on an engine with no store, two
+              chunks of two windows: equal to the resident runner on the
+              decoded files; every chunk but the first prefetched.
+12. cli    -- gauss_tpu_torch.cli.main in-process with the default
+              --device, on a panel-cache of phase 11's files:
+              impute-genome (twice: the second resumes and launches
+              nothing), --status, impute-region --device-linalg,
+              qcat-region, each equal to the Python call; then
+              impute_window with device_linalg on the first, middle and
+              last window of the bench region against the float64 host
+              window (max|dZ| <= 1e-4) and against the same window's rows
+              of phase 3's region call (SAME_TOL); one more window under
+              utils/timing.device_trace, whose Chrome trace must name
+              both kernels.  The windows run right
+              after phase 10's impute run, on its prepared state, which is
+              then released, so that each later run's peak memory is its
+              own.
+
+torch.backends.cuda.matmul.allow_tf32 is set True before phase 3, as a
+caller of the engine might: it must still be True at the end, and phase
+5's max|dZ| must stay at full-f32 size.
+
 Calls shorter than SHORT_MS (K2 on the gene buckets, K3 at the probe
 shape, K4, and their yardsticks) are timed twice: per call with CUDA
 events, host included (cuda_ms), and on the device alone from
@@ -78,8 +123,10 @@ read just after.  The line before the last is a JSON object
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import glob
+import io
 import json
 import os
 import re
@@ -87,20 +134,28 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
+import pandas as pd
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from gauss_tpu_torch import cli                                # noqa: E402
+from gauss_tpu_torch.config import PanelFiles                  # noqa: E402
 from gauss_tpu_torch.core import genekernels, ldkernels        # noqa: E402
 from gauss_tpu_torch.io import readers                         # noqa: E402
+from gauss_tpu_torch.io.panel import write_panel               # noqa: E402
 from gauss_tpu_torch.models import qcat                        # noqa: E402
 from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
+                                           PanelStore,
                                            _build_corr_blocks_fn)
+from gauss_tpu_torch.models.runner import GenomeRunner         # noqa: E402
+from gauss_tpu_torch.utils.timing import Tracer, device_trace  # noqa: E402
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
 from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
@@ -121,6 +176,18 @@ DZ_TOL = 1e-4            # f32 region solves vs the float64 host path
 DR_LD_TOL = 2e-4         # f32 LD vs the float64 weighted correlations
 DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
 GENE_RTOL = 1e-9         # float64 gene statistics, card vs CPU
+SAME_TOL = 1e-5          # the same windows through the same kernels in a
+                         # batch of another size (runner chunks, one
+                         # window alone): the batched f32 factorization,
+                         # solve and products take other routines per
+                         # batch count; measured 2.3e-6 .. 3.7e-6 in z
+TF32_DZ = 2e-5           # phase 5's max|dZ| in full f32 is ~1e-5; with the
+                         # tail's matmuls in TF32 it would be ~1e-3
+RUNNER_CHUNKS = 6        # the runner's chunks hold n_windows // 6 windows
+LD_CHUNKS = 3            # the runner's ld run covers this many chunks: its
+                         # walls are the host's (each window's matrix is
+                         # compressed into the chunk's .npz)
+STREAM_SNPS = 6_000      # streamed panel: 4 windows, 2 chunks of 2
 N_GENES, GENE_SNPS = 280, 24   # ~6.5 genes per Mb over the 43 Mb region
 STUDY_POP = "CEU"        # jepeg's one population (the largest)
 WARM_S = 0.05            # warm-up seconds before each timing
@@ -174,24 +241,30 @@ def device_ms(fn, reps=50):
     """(milliseconds per call on the device alone, {kernel short_name: ms
     per call}): the CUDA kernels torch.profiler records over ``reps`` calls
     enqueued back to back after a warm-up call, their host path left out.
-    Raises if the profiler records no device time."""
+    A profile of well under a millisecond now and then comes back with no
+    kernel record at all (seen once on the H100, on K4 in clusters of 8):
+    such a profile is taken again, and the third empty one raises."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            us = e.self_cuda_time_total if us is None else us
-            if us > 0:
-                kernels[short_name(e.key)] = us / 1e3 / reps
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device time")
-    return sum(kernels.values()), kernels
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {}
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA:
+                us = getattr(e, "self_device_time_total", None)
+                us = e.self_cuda_time_total if us is None else us
+                if us > 0:
+                    kernels[short_name(e.key)] = us / 1e3 / reps
+        if kernels:
+            return sum(kernels.values()), kernels
+        log(f"torch.profiler recorded no device time (profile "
+            f"{attempt + 1} of 3)")
+    raise RuntimeError("torch.profiler recorded no device time in 3 "
+                       "profiles")
 
 
 def short_name(kernel):
@@ -239,7 +312,7 @@ def phase_device():
     log(f"device: {name}; torch {torch.__version__} cuda "
         f"{torch.version.cuda}; tf32 matmul="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
-        f"{torch.backends.cudnn.allow_tf32} (the engine sets both False)")
+        f"{torch.backends.cudnn.allow_tf32} (the engine changes neither)")
     print(smi, flush=True)
     return dev, name
 
@@ -277,9 +350,9 @@ def phase_main(dev, n_snps):
         f"({time.perf_counter() - t:.1f}s); tf32 matmul="
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn="
         f"{torch.backends.cudnn.allow_tf32}")
-    if torch.backends.cuda.matmul.allow_tf32 or \
-            torch.backends.cudnn.allow_tf32:
-        raise AssertionError("the engine left TF32 on")
+    if not torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("building an engine switched the caller's "
+                             "TF32 off")
 
     reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -470,7 +543,7 @@ def phase_kernels(engine, run, batch, region_ms):
 
 def phase_parity(run, res, lo):
     t = time.perf_counter()
-    a = run.impute_window(lo, lo + WINDOW_BP - 1, WING_BP).table
+    a = run._impute_window_host(lo, lo + WINDOW_BP - 1, WING_BP).table
     bmask = (res["bp"] >= lo) & (res["bp"] <= lo + WINDOW_BP - 1)
     b = res[bmask].reset_index(drop=True)
     if len(a) != len(b) or not (a["rsid"].to_numpy()
@@ -492,7 +565,10 @@ def phase_parity(run, res, lo):
         f"{max_dinfo:.3e}, measured rows bit-equal={measured_equal}")
     if not max_dz <= DZ_TOL or not measured_equal:
         raise AssertionError("first window disagrees with the host path")
-    return max_dz
+    if not max_dz <= TF32_DZ:
+        raise AssertionError(f"max|dZ| {max_dz:.3e} is not full-f32 size: "
+                             f"TF32 reached the region tail")
+    return max_dz, a
 
 
 def k1_ms(run, Xa, Xb, a0, b0, na, nb, sym, reps=5):
@@ -592,7 +668,7 @@ def phase_ld(run, lo, hi, reps=5):
                 raise AssertionError(f"LD {fetch} window {i} disagrees with "
                                      f"the host path")
             out[fetch]["max_dr"] = max(out[fetch]["max_dr"], dr)
-    return launches, out, checks
+    return launches, out, checks, tri
 
 
 def phase_qcat(engine, run, lo, hi, reps=5):
@@ -683,7 +759,7 @@ def phase_qcat(engine, run, lo, hi, reps=5):
                                  f"path")
         max_dr = max(max_dr, dr)
     return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall,
-                          max_dr=max_dr), k1
+                          max_dr=max_dr), k1, q
 
 class _IndexOf:
     """What make_annotation reads of a panel: its index."""
@@ -775,9 +851,529 @@ def phase_jepeg(engine, reps=3):
                                  f"with the CPU engine")
         ids = genekernels._bucket_rows(buckets, idx)
         out[mode] = dict(ms=dev_ms, wall_s=wall, genes=len(gsel),
-                         buckets=len(buckets), max_rel=rel,
+                         buckets=len(buckets), max_rel=rel, frame=res,
                          k2=k2_check(f"jepeg {mode} buckets", panel, ids))
-    return total, out
+    return total, out, annot
+
+
+def impute_diff(got, ref, what):
+    """(max|dz|, max|dinfo|, bit-equal, max|dz| / max(1, |z|)) of two
+    impute frames that must hold the same rows."""
+    for c in ("rsid", "bp", "type"):
+        if len(got) != len(ref) or not np.array_equal(got[c].to_numpy(),
+                                                      ref[c].to_numpy()):
+            raise AssertionError(f"{what}: rows differ ({len(got)} vs "
+                                 f"{len(ref)}, column {c})")
+    gz, rz = got["z"].to_numpy(), ref["z"].to_numpy()
+    gi, ri = got["info"].to_numpy(), ref["info"].to_numpy()
+    if not (np.isfinite(gz).all() and np.isfinite(gi).all()):
+        raise AssertionError(f"{what}: non-finite z or info")
+    dz = np.abs(gz - rz)
+    return (float(dz.max()), float(np.abs(gi - ri).max()),
+            bool(np.array_equal(gz, rz) and np.array_equal(gi, ri)),
+            float((dz / np.maximum(1.0, np.abs(rz))).max()))
+
+
+def hold_same(got, ref, what):
+    """impute_diff held to SAME_TOL; returns its log text."""
+    dz, dinfo, equal, rel = impute_diff(got, ref, what)
+    if not (dz <= SAME_TOL and dinfo <= SAME_TOL):
+        raise AssertionError(f"{what}: max|dz| {dz:.3e}, max|dinfo| "
+                             f"{dinfo:.3e} above {SAME_TOL:g}")
+    return (f"max|dz| {dz:.3e} ({rel / 2.0 ** -23:.1f} f32 steps of "
+            f"max(1, |z|)), max|dinfo| {dinfo:.3e} (tol {SAME_TOL:g}), "
+            f"bit-equal={equal}")
+
+
+def timed_run(runner, dev, **kw):
+    """runner.run(**kw) with the launch counts and the peak-memory mark
+    set to 0 just before: (stats, wall s, counts, peak bytes)."""
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t = time.perf_counter()
+    stats = runner.run(**kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    return stats, wall, read_counts(), torch.cuda.max_memory_allocated(dev)
+
+
+def log_run(label, runner, stats, wall, counts, peak, n_units, unit):
+    log(f"runner {label}: {len(runner.chunks)} chunks {stats}, wall "
+        f"{wall:.3f}s -> {n_units / wall:.1f} {unit}/s ({n_units} {unit}), "
+        f"{len(runner.chunks) / wall:.2f} chunks/s; per-chunk elapsed "
+        f"{[round(c.elapsed, 4) for c in runner.chunks.values()]} s; "
+        f"launches {counts}; peak device memory {peak / 2**30:.2f} GiB")
+
+
+def all_done(runner, stats, what):
+    n = len(runner.chunks)
+    if stats != {"done": n, "failed": 0, "skipped": 0} or \
+            runner.status() != {"pending": 0, "done": n, "failed": 0}:
+        raise AssertionError(f"{what}: {stats}, {runner.status()}; first "
+                             f"error: " + next((c.error for c in
+                                                runner.chunks.values()
+                                                if c.error), "none"))
+
+
+def runner_maker(engine, lo, hi, tmp):
+    """(make, n_windows, chunk_bp): make(name, end_bp=hi, **kw) plans a
+    GenomeRunner over [lo, end_bp] of the bench region in chunks of whole
+    windows, in its own directory under ``tmp``."""
+    store = engine.store
+    inp = make_bench_input(store, MEASURED_FRAC)
+    pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
+    n_windows = -(-(hi - lo + 1) // WINDOW_BP)
+    chunk_bp = max(1, n_windows // RUNNER_CHUNKS) * WINDOW_BP
+
+    def make(name, end_bp=hi, **kw):
+        r = GenomeRunner(os.path.join(tmp, name), engine, inp, pop_wgt,
+                         window_bp=WINDOW_BP, wing_size=WING_BP,
+                         chunk_bp=chunk_bp, **kw)
+        r.plan(22, lo, end_bp)
+        return r
+
+    return make, n_windows, chunk_bp
+
+
+def phase_runner(engine, res, lo, hi, tmp):
+    """GenomeRunner over the bench region on the main path's engine,
+    analysis "impute": against phase 3's whole-region frame, then resume
+    and an injected failure.  Returns the counts and the run's prepared
+    state (phase_window's)."""
+    dev = engine.device
+    make, n_windows, chunk_bp = runner_maker(engine, lo, hi, tmp)
+    by_path = {}
+    r = make("impute")
+    n = len(r.chunks)
+    if n_windows >= 5 * RUNNER_CHUNKS and n < 5:
+        raise AssertionError(f"{n} chunks over {n_windows} windows")
+    stats, wall, counts, peak = timed_run(r, dev)
+    by_path["runner"] = counts
+    all_done(r, stats, "runner impute")
+    got = r.collect()
+    log_run("impute", r, stats, wall, counts, peak,
+            int((got["type"] == 0).sum()), "imputed SNPs")
+    if counts["weighted_gram_t1"] < 2 * n or counts["gather_rows"] < 2:
+        raise AssertionError("the runner's chunks did not launch K1 twice "
+                             "each and K2")
+    log(f"runner impute: {n} chunks of {chunk_bp // WINDOW_BP} windows "
+        f"against phase 3's whole-region call ({len(res)} rows): "
+        + hold_same(got, res, "runner collect() vs impute_region"))
+
+    # the same chunks one by one through the blocking call on the run's
+    # own prepared state, batches rebuilt: what the pipelining saves
+    prep = r._prepared()
+    chunks = list(r.chunks.values())
+    prep._res.clear()
+    os.makedirs(os.path.join(tmp, "blocking"))
+    torch.cuda.synchronize()
+    shard_s = 0.0
+    t = time.perf_counter()
+    for cs in chunks:
+        df = prep.impute_region(cs.start_bp, cs.end_bp, window_bp=WINDOW_BP,
+                                wing_size=WING_BP)
+        t1 = time.perf_counter()
+        df.to_parquet(os.path.join(tmp, "blocking", cs.key + ".parquet"))
+        shard_s += time.perf_counter() - t1
+    block_s = time.perf_counter() - t
+    later = sum(c.elapsed for c in chunks[1:])
+    cs = chunks[min(1, n - 1)]
+    prep._res.clear()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    b = prep._region_batch(cs.start_bp, cs.end_bp, WINDOW_BP, WING_BP)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    region_s = host_wall(lambda: prep.impute_region(
+        cs.start_bp, cs.end_bp, window_bp=WINDOW_BP, wing_size=WING_BP))
+    fn = prep._kernel_fn("impute", b.Mp, b.Up)
+    dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs, *b.compact), 5)
+    log(f"runner impute: the same {n} chunks one by one through blocking "
+        f"impute_region on the run's prepared state, batches rebuilt, each "
+        f"frame written as parquet: {block_s:.3f}s, {shard_s:.3f}s of it "
+        f"the writes = {block_s / n * 1e3:.1f} ms per chunk (the runner's "
+        f"chunks after the first, manifest rewrites included: {later:.3f}s "
+        f"= {later / max(n - 1, 1) * 1e3:.1f} ms per chunk; its whole run, "
+        f"join and panel upload included: {wall:.3f}s); chunk {cs.key} "
+        f"({len(b.plans)} windows, Mp={b.Mp}, Up={b.Up}): batch build "
+        f"{build_s * 1e3:.1f} ms, impute_region on the built batch "
+        f"{region_s * 1e3:.1f} ms wall (median of 3), its kernels "
+        f"{dev_ms:.3f} ms on the card (CUDA events, median of 5)")
+    del b
+
+    # resume: a new runner over the same directory skips every chunk
+    r2 = make("impute")
+    stats, wall, counts, _ = timed_run(r2, dev, resume=True)
+    log(f"runner impute, resumed by a new runner: {stats}, {wall:.3f}s, "
+        f"launches {counts}")
+    if stats != {"done": 0, "failed": 0, "skipped": n} or \
+            counts["weighted_gram_t1"] or counts["gather_rows"]:
+        raise AssertionError("the resumed run did not skip every chunk")
+
+    # one chunk made to fail at dispatch: recorded against it, the others
+    # finish, a resume retries it alone
+    rf = make("impute_fail")
+    victim = list(rf.chunks)[min(2, n - 1)]
+    real = rf._prepared
+    armed = [True]
+
+    def flaky(cs=None):
+        run = real(cs)
+        if cs.key == victim and armed:
+            armed.clear()
+            raise RuntimeError("injected chunk failure")
+        return run
+
+    rf._prepared = flaky
+    stats, wall, counts, _ = timed_run(rf, dev)
+    failed = [c for c in rf.chunks.values() if c.status == "failed"]
+    log(f"runner impute with chunk {victim} made to fail: {stats}; failed "
+        f"{[c.key for c in failed]}: "
+        f"{failed[0].error.splitlines()[0] if failed else None}")
+    if stats != {"done": n - 1, "failed": 1, "skipped": 0} or \
+            [c.key for c in failed] != [victim] or \
+            "injected chunk failure" not in failed[0].error:
+        raise AssertionError("the failure was not recorded against its "
+                             "own chunk alone")
+    del rf._prepared
+    stats, wall, counts2, _ = timed_run(rf, dev, resume=True)
+    log(f"runner impute, failed chunk resumed: {stats}, launches {counts2}; "
+        f"against the first run: "
+        + hold_same(rf.collect(), got, "resumed run vs first run"))
+    if stats != {"done": 1, "failed": 0, "skipped": n - 1} or \
+            counts2["weighted_gram_t1"] < 2 or \
+            (n > 1 and counts2["weighted_gram_t1"]
+             >= by_path["runner"]["weighted_gram_t1"]):
+        raise AssertionError("the resume did not retry the failed chunk "
+                             "alone")
+    return by_path, prep
+
+
+def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
+                          annot):
+    """One GenomeRunner run each of analysis "qcat", "ld" and "jepeg" on
+    the main path's engine, against the engine calls of phases 7, 6 and
+    8 (ld over the first LD_CHUNKS chunks only)."""
+    dev = engine.device
+    make, _, chunk_bp = runner_maker(engine, lo, hi, tmp)
+    by_path = {}
+
+    # qcat: phase 7's qcat_region over the whole region
+    rq = make("qcat", analysis="qcat")
+    n = len(rq.chunks)
+    stats, wall, counts, peak = timed_run(rq, dev)
+    by_path["runner qcat"] = counts
+    all_done(rq, stats, "runner qcat")
+    q = rq.collect()
+    log_run("qcat", rq, stats, wall, counts, peak, len(q), "tested SNPs")
+    same = len(q) == len(qcat_ref) and all(
+        np.array_equal(q[c].to_numpy(), qcat_ref[c].to_numpy())
+        for c in ("rsid", "bp", "type", "qcat_m"))
+    dr = float("inf")
+    if same:
+        dt = q["qcat_t"].to_numpy() - qcat_ref["qcat_t"].to_numpy()
+        dr = float(np.abs(
+            dt / np.sqrt(qcat_ref["qcat_m"].to_numpy() - 3.0)).max())
+    log(f"runner qcat against phase 7's qcat_region: rows and qcat_m "
+        f"equal={same}, max|dr| {dr:.3e} (tol {SAME_TOL:g}), bit-equal="
+        f"{same and bool(np.array_equal(q['qcat_t'], qcat_ref['qcat_t']))}")
+    if not (same and dr <= SAME_TOL) or counts["weighted_gram_t1"] < 2 * n:
+        raise AssertionError("runner qcat disagrees with qcat_region")
+    del rq
+    torch.cuda.empty_cache()
+
+    # ld: phase 6's ld_region (the default i16tri fetch), over a
+    # sub-span to keep the script short: the first LD_CHUNKS chunks
+    ld_hi = min(hi, lo + LD_CHUNKS * chunk_bp - 1)
+    rl = make("ld", end_bp=ld_hi, analysis="ld")
+    stats, wall, counts, peak = timed_run(rl, dev)
+    by_path["runner ld"] = counts
+    all_done(rl, stats, "runner ld")
+    blocks = rl.collect_ld()
+    log_run(f"ld (a sub-span: the first {len(rl.chunks)} of {n} chunks)",
+            rl, stats, wall, counts, peak, len(blocks), "windows")
+    ld_ref = [d for d in ld_ref if d["snplist"]["bp"].iloc[0] <= ld_hi]
+    if len(blocks) != len(ld_ref) or \
+            counts["weighted_gram_t1"] < len(rl.chunks):
+        raise AssertionError(f"runner ld: {len(blocks)} windows, ld_region "
+                             f"{len(ld_ref)}")
+    ld_dr, ld_equal = 0.0, True
+    for b, d in zip(blocks, ld_ref):
+        if list(b["snplist"]["rsid"]) != list(d["snplist"]["rsid"]) or \
+                set(b["snplist"]["fetch"]) != {d["fetch"]}:
+            raise AssertionError("runner ld: a window's SNPs or fetch mode "
+                                 "differ")
+        ld_dr = max(ld_dr, float(np.nanmax(np.abs(b["cormat"]
+                                                  - d["cormat"]))))
+        ld_equal &= bool(np.array_equal(b["cormat"], d["cormat"],
+                                        equal_nan=True))
+    ld_tol = 2 * LD_I16_MAX_ERR + SAME_TOL
+    log(f"runner ld against phase 6's ld_region (i16tri): max|dr| "
+        f"{ld_dr:.3e} (tol {ld_tol:.3e}: each side within "
+        f"LD_I16_MAX_ERR of its f32 value, one int16 step apart at "
+        f"most), bit-equal={ld_equal}")
+    if not ld_dr <= ld_tol:
+        raise AssertionError("runner ld disagrees with ld_region")
+    del rl, blocks
+    torch.cuda.empty_cache()
+
+    # jepeg: phase 8's jepegmix genes, partitioned by their first SNP
+    rj = make("jepeg", analysis="jepeg", annot_df=annot)
+    stats, wall, counts, peak = timed_run(rj, dev)
+    by_path["runner jepeg"] = counts
+    all_done(rj, stats, "runner jepeg")
+    genes = rj.collect()
+    log_run("jepeg", rj, stats, wall, counts, peak, len(genes), "genes")
+    rel, same = gene_frames_agree(genes, gene_ref)
+    log(f"runner jepeg against phase 8's jepeg_region: max rel diff "
+        f"{rel:.3e} (tol {GENE_RTOL:g}), df/geneid/top_categ/top_snp "
+        f"equal={same}")
+    if not (rel <= GENE_RTOL and same) or counts["gather_rows"] < 1:
+        raise AssertionError("runner jepeg disagrees with jepeg_region")
+    return by_path
+
+
+def phase_stream(store, dev, tmp):
+    """The runner in streaming mode on bgzf files of the store's first
+    STREAM_SNPS SNPs, against the resident runner on the decoded files."""
+    n = min(STREAM_SNPS, len(store.index))
+    t = time.perf_counter()
+    pf = PanelFiles(*write_panel(os.path.join(tmp, "stream"), store.desc,
+                                 store.index.iloc[:n], store.G[:n],
+                                 store.af[:n]))
+    write_s = time.perf_counter() - t
+    lo = int(store.index["bp"].iloc[0])
+    hi = int(store.index["bp"].iloc[n - 1])
+    n_windows = -(-(hi - lo + 1) // WINDOW_BP)
+    chunk_bp = (2 if n_windows >= 4 else 1) * WINDOW_BP
+    zin = make_bench_input(store, MEASURED_FRAC)
+    zin = zin[zin["bp"] <= hi + WING_BP]
+    zfile = os.path.join(tmp, "stream_z.txt")
+    with open(zfile, "w") as fh:
+        fh.write("rsid chr bp a1 a2 z\n")
+        for row in zin.itertuples(index=False):
+            fh.write(f"{row.rsid} {row.chr} {row.bp} {row.a1} {row.a2} "
+                     f"{row.z!r}\n")
+    inp = readers.read_input_z(zfile, chrom=22, start_bp=lo, end_bp=hi,
+                               wing_size=WING_BP)
+    pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
+    t = time.perf_counter()
+    decoded = PanelStore.from_bgzf(pf, chrom=22)
+    decode_s = time.perf_counter() - t
+    log(f"stream: wrote {n} SNPs x {store.G.shape[1]} subjects as bgzf "
+        f"({os.path.getsize(pf.data_file) / 2**20:.1f} MiB) in "
+        f"{write_s:.1f}s with the Python writer; whole file decoded in "
+        f"{decode_s:.2f}s; dosages equal="
+        f"{bool(np.array_equal(decoded.G, store.G[:n]))}; {len(inp)} "
+        f"measured SNPs, {n_windows} windows, chunks of "
+        f"{chunk_bp // WINDOW_BP}")
+    if not np.array_equal(decoded.G, store.G[:n]):
+        raise AssertionError("the decoded panel differs from the store")
+
+    def make(name, engine, **kw):
+        r = GenomeRunner(os.path.join(tmp, name), engine, inp, pop_wgt,
+                         window_bp=WINDOW_BP, wing_size=WING_BP,
+                         chunk_bp=chunk_bp, **kw)
+        r.plan(22, lo, hi)
+        return r
+
+    rr = make("stream_resident",
+              GenomeEngine(decoded, device=dev, device_linalg=True))
+    stats, wall, counts, peak = timed_run(rr, dev)
+    all_done(rr, stats, "resident runner on the decoded files")
+    ref = rr.collect()
+    log_run("impute, resident on the decoded files", rr, stats, wall,
+            counts, peak, int((ref["type"] == 0).sum()), "imputed SNPs")
+    del rr
+    torch.cuda.empty_cache()
+
+    tracer = Tracer()
+    rs = make("stream", GenomeEngine(None, device=dev, device_linalg=True),
+              panel_files=pf, tracer=tracer)
+    if n == STREAM_SNPS and (len(rs.chunks) < 2 or chunk_bp < 2 * WINDOW_BP):
+        raise AssertionError("streaming needs 2 chunks of 2 windows")
+    stats, wall, counts, peak = timed_run(rs, dev)
+    all_done(rs, stats, "streaming runner")
+    got = rs.collect()
+    log_run("impute, streaming", rs, stats, wall, counts, peak,
+            int((got["type"] == 0).sum()), "imputed SNPs")
+    decodes = [p for p in tracer.phases if p.name.endswith("decode_chunk")]
+    prepares = [p for p in tracer.phases if p.name.endswith("prepare_chunk")]
+    log(f"stream: decode_chunk {[round(p.elapsed, 3) for p in decodes]} s, "
+        f"prefetched {[p.meta['prefetched'] for p in decodes]}; "
+        f"prepare_chunk {[round(p.elapsed, 3) for p in prepares]} s; "
+        f"against the resident runner: "
+        + hold_same(got, ref, "streaming vs resident runner")
+        + f", max|d af1mix| "
+        f"{float(np.abs(got['af1mix'] - ref['af1mix']).max()):.1e} (a "
+        f"float64 product over another number of rows)")
+    if len(decodes) != len(rs.chunks) or decodes[0].meta["prefetched"] or \
+            not all(p.meta["prefetched"] for p in decodes[1:]) or \
+            counts["weighted_gram_t1"] < 2 * len(rs.chunks) or \
+            counts["gather_rows"] < 2 * len(rs.chunks):
+        raise AssertionError("streaming: a chunk after the first was not "
+                             "prefetched, or a chunk launched no kernel")
+    return counts, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp, ref
+
+
+def read_tsv(path):
+    return pd.read_csv(path, sep="\t", float_precision="round_trip")
+
+
+def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
+              runner_ref):
+    """The command line in-process with its default --device, on a
+    panel-cache of phase 11's files, each output against the Python
+    call's."""
+    ref_args = ["--reference-index-file", pf.index_file,
+                "--reference-data-file", pf.data_file,
+                "--reference-pop-desc-file", pf.pop_desc_file]
+    cache = os.path.join(tmp, "cache")
+    cli.main(["panel-cache", "--chr", "22", "-o", cache] + ref_args)
+    wgt = os.path.join(tmp, "wgt.tsv")
+    pd.DataFrame({"pop": list(pop_wgt), "wgt": list(pop_wgt.values())}
+                 ).to_csv(wgt, sep="\t", index=False)
+    span = ["--chr", "22", "--start-bp", str(lo), "--end-bp", str(hi),
+            "--pop-wgt-file", wgt, "--input-file", zfile,
+            "--window-bp", str(WINDOW_BP), "--wing-size", str(WING_BP),
+            "--panel-cache", cache] + ref_args
+    by_path = {}
+
+    def call(argv, out):
+        reset_counts()
+        t = time.perf_counter()
+        cli.main(argv + ["-o", out])
+        torch.cuda.synchronize()
+        return read_counts(), time.perf_counter() - t
+
+    genome = ["impute-genome"] + span + [
+        "--chunk-bp", str(chunk_bp), "--run-dir", os.path.join(tmp, "cli_run")]
+    out1, out2 = os.path.join(tmp, "g1.tsv"), os.path.join(tmp, "g2.tsv")
+    by_path["cli impute-genome"], wall = call(genome, out1)
+    c2, wall2 = call(genome, out2)
+    g1 = read_tsv(out1)
+    log(f"cli impute-genome: {wall:.3f}s, launches "
+        f"{by_path['cli impute-genome']}; again (resumes): {wall2:.3f}s, "
+        f"launches {c2}, the same file="
+        f"{open(out1).read() == open(out2).read()}; against the Python "
+        f"runner on the same chunks: "
+        + hold_same(g1, runner_ref, "cli impute-genome vs GenomeRunner"))
+    if by_path["cli impute-genome"]["weighted_gram_t1"] < 2 or \
+            by_path["cli impute-genome"]["gather_rows"] < 2 or \
+            c2["weighted_gram_t1"] or c2["gather_rows"] or \
+            open(out1).read() != open(out2).read():
+        raise AssertionError("cli impute-genome: no kernel on the first "
+                             "call, or the second did not resume")
+    buf = io.StringIO()      # --status prints the counts on stdout
+    with contextlib.redirect_stdout(buf):
+        cli.main(genome + ["--status"])
+    status = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"cli impute-genome --status: {status}")
+    if status.get("done", 0) < 1 or status.get("failed") or \
+            status.get("pending"):
+        raise AssertionError("cli --status does not show the run done")
+
+    store = PanelStore.load(cache)
+    for cmd, extra, cutoff, method in (
+            ("impute-region", ["--device-linalg"], 0.01, "impute_region"),
+            ("qcat-region", [], 0.05, "qcat_region")):
+        out = os.path.join(tmp, cmd + ".tsv")
+        by_path["cli " + cmd], wall = call([cmd] + span + extra, out)
+        got = read_tsv(out)
+        run = GenomeEngine(store, device=dev, device_linalg=True
+                           ).prepare_mix(inp, pop_wgt, af1_cutoff=cutoff)
+        ref = getattr(run, method)(lo, hi, window_bp=WINDOW_BP,
+                                   wing_size=WING_BP)
+        del run
+        if cmd == "impute-region":
+            text = hold_same(got, ref, "cli impute-region vs impute_region")
+        else:
+            same = len(got) == len(ref) and all(
+                np.array_equal(got[c].to_numpy(), ref[c].to_numpy())
+                for c in ("rsid", "bp", "type", "qcat_m"))
+            dt = float(np.abs(got["qcat_t"].to_numpy()
+                              - ref["qcat_t"].to_numpy()).max()
+                       ) if same else float("inf")
+            text = (f"rows and qcat_m equal={same}, max|dt| {dt:.3e} (tol "
+                    f"{SAME_TOL:g})")
+            if not (same and dt <= SAME_TOL):
+                raise AssertionError("cli qcat-region disagrees with "
+                                     "qcat_region")
+        log(f"cli {cmd}: {wall:.3f}s, {len(got)} rows, launches "
+            f"{by_path['cli ' + cmd]}; against the Python call: {text}")
+        if by_path["cli " + cmd]["weighted_gram_t1"] < 2 or \
+                by_path["cli " + cmd]["gather_rows"] < 1:
+            raise AssertionError(f"cli {cmd} launched no kernel")
+    return by_path
+
+
+def phase_window(prep, res, lo, hi, first_host):
+    """impute_window with device_linalg (a one-window region on the card)
+    on the first, middle and last window of the bench region: against the
+    float64 host window and against its rows of phase 3's region call."""
+    spans = []
+    a = lo
+    while a <= hi:
+        b = min(a + WINDOW_BP - 1, hi)
+        if prep._window_plan(a, b, WING_BP) is not None:
+            spans.append((a, b))
+        a = b + 1
+    reset_counts()
+    worst = 0.0
+    picks = sorted({0, len(spans) // 2, len(spans) - 1})
+    for i in picks:
+        a, b = spans[i]
+        t = time.perf_counter()
+        got = prep.impute_window(a, b, WING_BP)
+        first_s = time.perf_counter() - t
+        wall = host_wall(lambda: prep.impute_window(a, b, WING_BP))
+        t = time.perf_counter()
+        host = (first_host if i == 0 else
+                prep._impute_window_host(a, b, WING_BP).table)
+        host_s = time.perf_counter() - t
+        dz, dinfo, _, _ = impute_diff(got.table, host,
+                                      f"device window {i}")
+        imp = host["type"].to_numpy() == 0
+        inside = res[(res["bp"] >= a) & (res["bp"] <= b)
+                     ].reset_index(drop=True)
+        log(f"device impute_window {i} ({got.n_measured} measured, "
+            f"{got.n_unmeasured} unmeasured): first call {first_s:.3f}s, "
+            f"then {wall * 1e3:.1f} ms wall (median of 3; host float64 "
+            f"window {host_s:.1f}s); vs the float64 host window max|dZ| "
+            f"{dz:.3e} (tol {DZ_TOL:g}), max|dInfo| {dinfo:.3e}, measured "
+            f"rows bit-equal="
+            f"{bool(np.array_equal(got.table['z'][~imp], host['z'][~imp]))}"
+            f"; vs its rows of the region call: "
+            + hold_same(got.table, inside, f"device window {i} vs region"))
+        if not dz <= DZ_TOL:
+            raise AssertionError(f"device window {i} disagrees with the "
+                                 f"host path")
+        worst = max(worst, dz)
+    counts = read_counts()
+    log(f"device impute_window: launches over {len(picks)} windows x 4 "
+        f"calls {counts}")
+    return counts, worst
+
+
+def phase_trace(prep, lo):
+    """utils/timing.device_trace around one device impute_window: the
+    Chrome trace torch.profiler writes must hold both kernels' records
+    from the card."""
+    with tempfile.TemporaryDirectory(prefix="gauss_trace_") as tdir:
+        with device_trace(tdir):
+            prep._res.clear()          # rebuild the batch: K2 runs too
+            prep.impute_window(lo, lo + WINDOW_BP - 1, WING_BP)
+            torch.cuda.synchronize()
+        files = glob.glob(os.path.join(tdir, "trace_*.json"))
+        names = {str(e.get("name", "")) for f in files
+                 for e in json.load(open(f))["traceEvents"]
+                 if e.get("cat") == "kernel"}
+        log(f"device_trace: {len(files)} Chrome trace file(s), "
+            f"{sum(os.path.getsize(f) for f in files)} bytes, "
+            f"{len(names)} distinct kernels on the card")
+    for k in ("weighted_gram_kernel", "gather_rows_kernel"):
+        if not any(k in n for n in names):
+            raise AssertionError(f"device_trace: no {k} record in the trace")
 
 
 def phase_probe_path():
@@ -973,16 +1569,42 @@ def main():
 
     dev, name = phase_device()
     phase_build()
+    # as a caller with TF32 on: the engine must leave the switch alone and
+    # still run its tails in full f32
+    torch.backends.cuda.matmul.allow_tf32 = True
     engine, run, res, lo, hi, launches, batch, region_ms = phase_main(
         dev, args.snps)
     kernels = phase_kernels(engine, run, batch, region_ms)
     del batch
-    phase_parity(run, res, lo)
-    ld_launches, _, ld_checks = phase_ld(run, lo, hi)
-    qcat_launches, _, qcat_k1 = phase_qcat(engine, run, lo, hi)
+    max_dz, first_host = phase_parity(run, res, lo)
+    ld_launches, _, ld_checks, ld_ref = phase_ld(run, lo, hi)
+    qcat_launches, _, qcat_k1, qcat_ref = phase_qcat(engine, run, lo, hi)
     del run
     torch.cuda.empty_cache()
-    jepeg_launches, jepeg = phase_jepeg(engine)
+    jepeg_launches, jepeg, annot = phase_jepeg(engine)
+    with tempfile.TemporaryDirectory(prefix="gauss_smoke_") as tmp:
+        runner_launches, prep = phase_runner(engine, res, lo, hi, tmp)
+        # phase 12's single windows run here, on phase 10's prepared
+        # state, which is then released: the peaks below are each run's own
+        window_launches, window_dz = phase_window(prep, res, lo, hi,
+                                                  first_host)
+        phase_trace(prep, lo)
+        del prep
+        torch.cuda.empty_cache()
+        runner_launches.update(phase_runner_analyses(
+            engine, lo, hi, tmp, ld_ref, qcat_ref,
+            jepeg["jepegmix"].pop("frame"), annot))
+        del ld_ref, qcat_ref
+        jepeg["jepeg"].pop("frame")
+        stream_launches, *stream = phase_stream(engine.store, dev, tmp)
+        cli_launches = phase_cli(dev, tmp, *stream)
+        del stream
+    torch.cuda.empty_cache()
+    log(f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} after every "
+        f"path (set True before phase 3); phase 5 max|dZ| {max_dz:.3e}, "
+        f"device impute_window max|dZ| {window_dz:.3e}")
+    if not torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("a path switched the caller's TF32 off")
     probe_launches = phase_probe_path()
     k3, k4, k3_sass = phase_probe7(dev)
 
@@ -1015,7 +1637,9 @@ def main():
            "int4_dot": k3["K1 yardstick 55040x1280x34176"],
            "resident_rowsum": k4["int8 cluster 8"]}
     by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
-               "jepeg": jepeg_launches, "probe7": probe_launches}
+               "jepeg": jepeg_launches, **runner_launches,
+               "impute_window": window_launches, "streaming": stream_launches,
+               **cli_launches, "probe7": probe_launches}
     # the path each row's "launches" counts: the main path for K1 and K2,
     # the probe for K3 and K4
     own = {"weighted_gram_t1": launches, "gather_rows": launches,

@@ -16,11 +16,26 @@ Ported so far:
   gather (K2, ``ops/gather.py``) are CUDA kernels for sm_90a, built from
   ``csrc/`` on first use.  CPU tensors run the kernels' plain PyTorch
   versions;
+* the single-window device path: ``PreparedRun.impute_window`` with the
+  engine's ``device_linalg`` runs the window as a one-window region
+  through the resident kernel (the float64 host window otherwise);
+* the checkpointed genome runner (``models.runner.GenomeRunner``:
+  ``manifest.json`` ledger, one parquet shard per chunk, resume and
+  restart, the analyses impute / qcat / ld / jepeg, resident and
+  streaming panels, impute chunks pipelined through
+  ``impute_region_async``) and its phase tracer (``utils.timing``:
+  ``Tracer``, ``device_trace`` on torch.profiler);
+* the command line (``cli.py``, ``python -m gauss_tpu_torch <cmd>``):
+  gauss_tpu's subcommands and arguments, plus ``--device`` (default
+  ``cuda``) on impute-region, qcat-region and impute-genome; the mesh
+  options wait for the multi-GPU port; ``entry.entry(device)``, the
+  resident kernel on a toy batch, and ``utils.goldens``;
 * probe 7 (``probes/probe7_int4.py``): an int4 product (K3) and row sums
   over a block resident in a cluster's shared memory (K4).
 
 Importing the package has no side effects: nothing is built, no device
-is touched.
+is touched, no process-wide switch is set (the resident kernels turn
+TF32 off around their own matmuls and restore it).
 """
 
 from .config import PanelFiles, Settings

@@ -29,6 +29,7 @@ import torch
 
 from . import stats
 from ..ops.gather import gather_rows
+from ..ops.window_kernel import full_f32_matmul
 
 
 def _bucket(n: int, minimum: int = 8) -> int:
@@ -218,9 +219,10 @@ def gene_stats_resident(
         zb = Wz[o:o + B * npad, 6].reshape(B, npad)
         o += B * npad
         real = (idx >= 0).reshape(B, npad)
-        CorG = _corr_from_pop_partials(
-            *_pop_partials(_gather_genes(G_dev, idx, B, npad), bounds),
-            pop_sizes, wgts)
+        with full_f32_matmul():    # the f32 partials hold exact integers
+            partials = _pop_partials(_gather_genes(G_dev, idx, B, npad),
+                                     bounds)
+        CorG = _corr_from_pop_partials(*partials, pop_sizes, wgts)
         CorG = torch.where(real[:, :, None] & real[:, None, :], CorG, 0.0)
         # the ridge diagonal as the reference writes it: a real SNP's NaN
         # diagonal stays NaN (NaN * 0)
@@ -262,8 +264,9 @@ def gene_corr_resident(
         B = len(batch)
         Gb = _gather_genes(G_dev, ids[o:o + B * npad], B, npad)
         o += B * npad
-        mats.append(_corr_from_pop_partials(*_pop_partials(Gb, bounds),
-                                            pop_sizes, wgts))
+        with full_f32_matmul():
+            partials = _pop_partials(Gb, bounds)
+        mats.append(_corr_from_pop_partials(*partials, pop_sizes, wgts))
     out: List[Optional[np.ndarray]] = [None] * len(gene_idx)
     for (npad, batch), R in zip(buckets, mats):
         R = R.cpu().numpy()

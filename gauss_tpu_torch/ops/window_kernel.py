@@ -36,6 +36,7 @@ Z1 entries; masked unmeasured rows produce values the compaction drops.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
@@ -66,6 +67,25 @@ class WindowKernelSpec:
     @property
     def bounds(self) -> np.ndarray:
         return stats.segment_bounds(self.pop_sizes_padded)
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """Full-f32 matmuls for the calls queued inside: both TF32 switches
+    off, and back to what the caller had on exit.  TF32 keeps ~3 decimal
+    digits; the region tails' rank-P corrections subtract from the Gram
+    and would lose the covariances' last ones (the reference tail runs at
+    Precision.HIGHEST).  A matmul reads the switch when it is queued, not
+    when it runs, so nothing here waits for the device."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def pad_pop_segments(G: np.ndarray, pop_sizes: Sequence[int],
@@ -180,7 +200,8 @@ def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
         X[:, lo:lo + m].sub_(c8[:, k:k + 1])
     Mu = Ssum.to(torch.float32) / mf
     d = m_i32 * Q - Ssum * Ssum                            # exact int32
-    V = d.to(torch.float32) @ alpha
+    with full_f32_matmul():
+        V = d.to(torch.float32) @ alpha
     return X, Sp, Mu, V
 
 
@@ -343,7 +364,8 @@ def build_resident_region_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
                               u_t0[sl], m_mask[sl], u_mask[sl])
             return torch.stack(_impute_tail(B11, B21,
                                             Z1[sl].to(torch.float32)))
-        out = _by_slab(m_t0.shape[0], step, dim=1)       # [2, W, Up]
+        with full_f32_matmul():
+            out = _by_slab(m_t0.shape[0], step, dim=1)   # [2, W, Up]
         if wi is not None:
             return out[:, wi, ci]
         return out
@@ -436,7 +458,8 @@ def build_resident_ld_kernel(spec: WindowKernelSpec, Mp: int,
         def step(sl):
             corr, _ = blocks.mm(Xm, Spm, Mum, m_t0[sl], m_mask[sl], 1.0)
             return pack(corr)
-        return _by_slab(m_t0.shape[0], step)
+        with full_f32_matmul():
+            return _by_slab(m_t0.shape[0], step)
 
     return fn
 
@@ -510,6 +533,7 @@ def build_resident_qcat_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
                               u_t0[sl], m_mask[sl], u_mask[sl])
             return _qcat_tail(B11, B21, Z1[sl].to(torch.float32),
                               m_mask[sl])
-        return _by_slab(m_t0.shape[0], step)
+        with full_f32_matmul():
+            return _by_slab(m_t0.shape[0], step)
 
     return fn

@@ -106,7 +106,8 @@ def test_exports():
         assert callable(getattr(gauss_tpu, name))
     assert isinstance(gauss_tpu_torch.PGC2_SCZ_ANC_Prop, pd.DataFrame)
     with pytest.raises(AttributeError):
-        gauss_tpu_torch.GenomeRunner     # the runner is not ported yet
+        gauss_tpu_torch.GenomeRunner     # as in gauss_tpu: not a package
+                                         # export (models.runner has it)
 
 
 @pytest.fixture(scope="module")
