@@ -76,27 +76,23 @@ Phases (each prints its evidence; any failure exits non-zero):
               run(resume=True) skips every chunk and launches no kernel;
               a run with one chunk made to fail
               records the failure against that chunk, finishes the others,
-              and its resume retries that chunk alone.  The same chunks
-              one by one through the blocking impute_region, and one
-              chunk's batch build timed apart, stand beside the run's
-              wall.  Then analysis "qcat", "ld" (the first LD_CHUNKS
-              chunks: its walls are the host's) and "jepeg" (phase 8's
-              annotation), each against the engine call of phase 7, 6 or
-              8.  Per analysis: chunks, wall, rate, per-chunk elapsed,
-              peak device memory.  Results of the same windows through
-              the same kernels in a batch of another size are held to
-              SAME_TOL in z and info (f32 rounding: the batched routines
-              differ per batch count), LD to one int16 step.
+              and its resume retries that chunk alone, bit-equal to the
+              first run.  One chunk's batch build, region call and kernels
+              are timed apart.  Then analysis "qcat", "ld" (the first
+              LD_CHUNKS chunks: its walls are the host's) and "jepeg"
+              (phase 8's annotation), each against the engine call of
+              phase 7, 6 or 8.  Per analysis: chunks, wall, rate,
+              per-chunk elapsed, peak device memory.
 11. stream -- the first STREAM_SNPS SNPs of the store at every subject,
               written as bgzf files (io/panel.write_panel), then the
               runner with panel_files= on an engine with no store, two
-              chunks of two windows: equal to the resident runner on the
-              decoded files; every chunk but the first prefetched.
+              chunks of two windows: bit-equal to the resident runner on
+              the decoded files; every chunk but the first prefetched.
 12. cli    -- gauss_tpu_torch.cli.main in-process with the default
               --device, on a panel-cache of phase 11's files:
               impute-genome (twice: the second resumes and launches
               nothing), --status, impute-region --device-linalg,
-              qcat-region, each equal to the Python call; then
+              qcat-region, each bit-equal to the Python call; then
               impute_window with device_linalg on the first, middle and
               last window of the bench region against the float64 host
               window (max|dZ| <= 1e-4) and against the same window's rows
@@ -106,6 +102,19 @@ Phases (each prints its evidence; any failure exits non-zero):
               after phase 10's impute run, on its prepared state, which is
               then released, so that each later run's peak memory is its
               own.
+
+Phases 10 to 12 also hold K1 and K2 against their plain versions on each
+path's own launches, as phases 4, 6, 7 and 8 do for theirs: one chunk's
+batch of the impute and qcat runs, the last LD chunk's launch and the
+measured half it gathered, one chunk's gene buckets, the middle single
+window's one-window batch, a streamed chunk's batch on its own decoded
+panel, and the batches of the three commands (checked_by_path in the
+kernels line).  Results of the same windows through the same kernels are
+held to bit-equality where the batches have the same size (a resumed
+chunk, streaming, the commands) and to SAME_TOL in z and info where the
+size differs (chunks or one window against the whole region: PyTorch
+picks its triangular solve and reductions by batch count,
+profile_runner.py), LD to one int16 step.
 
 torch.backends.cuda.matmul.allow_tf32 is set True before phase 3, as a
 caller of the engine might: it must still be True at the end, and phase
@@ -178,9 +187,12 @@ DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
 GENE_RTOL = 1e-9         # float64 gene statistics, card vs CPU
 SAME_TOL = 1e-5          # the same windows through the same kernels in a
                          # batch of another size (runner chunks, one
-                         # window alone): the batched f32 factorization,
-                         # solve and products take other routines per
-                         # batch count; measured 2.3e-6 .. 3.7e-6 in z
+                         # window alone): the triangular solve (looped
+                         # trsm up to 8 matrices, batched above), the z2
+                         # product and the info sum give other last bits
+                         # per batch count, and the factorization for one
+                         # matrix (profile_runner.py); measured 2.3e-6 ..
+                         # 3.7e-6 in z.  Equal batch sizes: bit-equal
 TF32_DZ = 2e-5           # phase 5's max|dZ| in full f32 is ~1e-5; with the
                          # tail's matmuls in TF32 it would be ~1e-3
 RUNNER_CHUNKS = 6        # the runner's chunks hold n_windows // 6 windows
@@ -188,11 +200,16 @@ LD_CHUNKS = 3            # the runner's ld run covers this many chunks: its
                          # walls are the host's (each window's matrix is
                          # compressed into the chunk's .npz)
 STREAM_SNPS = 6_000      # streamed panel: 4 windows, 2 chunks of 2
+STREAM_ZLIB_LEVEL = 1    # of the streamed panel's bgzf blocks: the Python
+                         # writer's time is zlib's (level 6 took 26-28 s)
 N_GENES, GENE_SNPS = 280, 24   # ~6.5 genes per Mb over the 43 Mb region
 STUDY_POP = "CEU"        # jepeg's one population (the largest)
 WARM_S = 0.05            # warm-up seconds before each timing
 SHORT_MS = 0.2           # calls shorter than this are also timed on the
                          # device alone (device_ms)
+PROFILE_MARGINS = (0.02, 0.2, 1.0)   # seconds of idle capture window kept
+                         # on both sides of a device_ms profile's calls,
+                         # per attempt
 # published peaks of one H100 SXM (dense int8 tensor-core rate, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
 HBM_BYTES_PER_S = 3.35e12
@@ -241,17 +258,27 @@ def device_ms(fn, reps=50):
     """(milliseconds per call on the device alone, {kernel short_name: ms
     per call}): the CUDA kernels torch.profiler records over ``reps`` calls
     enqueued back to back after a warm-up call, their host path left out.
-    A profile of well under a millisecond now and then comes back with no
-    kernel record at all (seen once on the H100, on K4 in clusters of 8):
-    such a profile is taken again, and the third empty one raises."""
+
+    A profile of well under a millisecond, taken minutes into the process,
+    can come back with no kernel record at all (seen on the H100 on the
+    two shortest profiles, K4 in clusters of 8 and torch._int_mm at 256 x
+    2048, 0.3 ms each; the profiles of 5 ms before and after them held
+    their records): the profiler keeps only records inside its capture
+    window.  So the calls sit PROFILE_MARGINS[0] seconds inside the
+    window on both sides, an empty profile is taken again with the next,
+    wider margin, and after the last it returns (None, {}): the number is
+    then reported as not measured, the check itself does not depend on
+    it."""
     fn()
     torch.cuda.synchronize()
-    for attempt in range(3):
+    for attempt, margin in enumerate(PROFILE_MARGINS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            time.sleep(margin)
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
+            time.sleep(margin)
         kernels = {}
         for e in prof.key_averages():
             if e.device_type == DeviceType.CUDA:
@@ -262,9 +289,8 @@ def device_ms(fn, reps=50):
         if kernels:
             return sum(kernels.values()), kernels
         log(f"torch.profiler recorded no device time (profile "
-            f"{attempt + 1} of 3)")
-    raise RuntimeError("torch.profiler recorded no device time in 3 "
-                       "profiles")
+            f"{attempt + 1} of {len(PROFILE_MARGINS)}, margin {margin:g} s)")
+    return None, {}
 
 
 def short_name(kernel):
@@ -284,6 +310,10 @@ def device_times(fn, lib_fn):
     """device_ms of a kernel's wrapper and of its yardstick, as row keys."""
     d, dk = device_ms(fn)
     ld, lk = device_ms(lib_fn)
+    if d is None or ld is None:
+        log("device-only times not measured: torch.profiler kept no "
+            "kernel record")
+        return {}
     return dict(device_ms=d, device_kernels=dk, library_device_ms=ld,
                 library_kernels=lk)
 
@@ -473,12 +503,13 @@ def sum_checks(checks):
     return out
 
 
-def k2_check(label, G, rows, reps=5):
+def k2_check(label, G, rows, reps=5, device_too=True):
     """K2 against its plain version on one gather's row ids (-1 =
     sentinel), then timed beside its plain version, its bound (each
     distinct panel row read once, every output row written once) and
     torch.index_select on the clamped ids (the same bytes; sentinel rows
-    not zeroed).  Fails unless bit-equal."""
+    not zeroed).  Fails unless bit-equal.  A call shorter than SHORT_MS
+    is also timed on the device alone, unless ``device_too`` is off."""
     idx = torch.from_numpy(rows).to(G.device)
     got = gather.gather_rows(G, idx)
     ref = gather.gather_rows_plain(G, idx)
@@ -494,7 +525,7 @@ def k2_check(label, G, rows, reps=5):
     b_ms, b_by = bound(0.0, (n_distinct + N) * S)
     dev = (device_times(lambda: gather.gather_rows(G, idx),
                         lambda: torch.index_select(G, 0, clamped))
-           if min(ms, lib) < SHORT_MS else {})
+           if device_too and min(ms, lib) < SHORT_MS else {})
     log(f"K2 {label}: R={G.shape[0]} S={S} N={N} ({N - n_real} "
         f"sentinels, {n_distinct} distinct rows): bit-equal={equal}; "
         f"kernel {ms:.3f} ms per call "
@@ -538,6 +569,31 @@ def phase_kernels(engine, run, batch, region_ms):
     # sentinels padding each window's band
     k2 = k2_check("impute batch", run._device_panel(),
                   np.concatenate(run._aligned_rows(batch.plans)))
+    return {"weighted_gram_t1": k1, "gather_rows": k2}
+
+
+def batch_checks(label, run, b, reps=3):
+    """K1 (mm and um) and K2 (the measured and the unmeasured gather)
+    against their plain versions on one region batch of a later path: the
+    launches that path made to build and run this batch, at its own
+    window count, band heights and row ids."""
+    Xm, Xu = b.arrays[0], b.arrays[1]
+    m0, u0 = b.inputs[0], b.inputs[1]
+    if Xm.shape[0] != m0.shape[0] * b.Mp or Xu.shape[0] != u0.shape[0] * b.Up:
+        raise AssertionError(f"{label}: not the aligned layout; K2's row "
+                             f"ids below would not be the path's")
+    seg = segments(run)
+    k1 = sum_checks([
+        k1_check(f"{label} mm", (Xm, Xm, *seg, m0, m0, b.Mp, b.Mp, True),
+                 reps),
+        k1_check(f"{label} um", (Xu, Xm, *seg, u0, m0, b.Up, b.Mp, False),
+                 reps)])
+    rows_m, rows_u = run._aligned_rows(b.plans)
+    k2 = sum_checks([
+        k2_check(f"{label} measured rows", run._device_panel(), rows_m, reps,
+                 device_too=False),
+        k2_check(f"{label} unmeasured rows", run._device_panel(), rows_u,
+                 reps, device_too=False)])
     return {"weighted_gram_t1": k1, "gather_rows": k2}
 
 
@@ -874,14 +930,19 @@ def impute_diff(got, ref, what):
             float((dz / np.maximum(1.0, np.abs(rz))).max()))
 
 
-def hold_same(got, ref, what):
-    """impute_diff held to SAME_TOL; returns its log text."""
+def hold_same(got, ref, what, exact=False):
+    """impute_diff held to SAME_TOL, or with ``exact`` (the same windows
+    in batches of the same size) to bit-equality; returns its log text."""
     dz, dinfo, equal, rel = impute_diff(got, ref, what)
+    if exact and not equal:
+        raise AssertionError(f"{what}: not bit-equal (max|dz| {dz:.3e}, "
+                             f"max|dinfo| {dinfo:.3e})")
     if not (dz <= SAME_TOL and dinfo <= SAME_TOL):
         raise AssertionError(f"{what}: max|dz| {dz:.3e}, max|dinfo| "
                              f"{dinfo:.3e} above {SAME_TOL:g}")
     return (f"max|dz| {dz:.3e} ({rel / 2.0 ** -23:.1f} f32 steps of "
-            f"max(1, |z|)), max|dinfo| {dinfo:.3e} (tol {SAME_TOL:g}), "
+            f"max(1, |z|)), max|dinfo| {dinfo:.3e} "
+            f"({'held to bit-equality' if exact else f'tol {SAME_TOL:g}'}), "
             f"bit-equal={equal}")
 
 
@@ -938,8 +999,9 @@ def runner_maker(engine, lo, hi, tmp):
 def phase_runner(engine, res, lo, hi, tmp):
     """GenomeRunner over the bench region on the main path's engine,
     analysis "impute": against phase 3's whole-region frame, then resume
-    and an injected failure.  Returns the counts and the run's prepared
-    state (phase_window's)."""
+    and an injected failure; K1 and K2 against their plain versions on
+    one chunk's batch.  Returns the counts, the run's prepared state
+    (phase_window's) and the kernel checks."""
     dev = engine.device
     make, n_windows, chunk_bp = runner_maker(engine, lo, hi, tmp)
     by_path = {}
@@ -960,22 +1022,10 @@ def phase_runner(engine, res, lo, hi, tmp):
         f"against phase 3's whole-region call ({len(res)} rows): "
         + hold_same(got, res, "runner collect() vs impute_region"))
 
-    # the same chunks one by one through the blocking call on the run's
-    # own prepared state, batches rebuilt: what the pipelining saves
+    # one chunk apart, on the run's own prepared state: its batch build,
+    # the region call on the built batch, its kernels on the card
     prep = r._prepared()
     chunks = list(r.chunks.values())
-    prep._res.clear()
-    os.makedirs(os.path.join(tmp, "blocking"))
-    torch.cuda.synchronize()
-    shard_s = 0.0
-    t = time.perf_counter()
-    for cs in chunks:
-        df = prep.impute_region(cs.start_bp, cs.end_bp, window_bp=WINDOW_BP,
-                                wing_size=WING_BP)
-        t1 = time.perf_counter()
-        df.to_parquet(os.path.join(tmp, "blocking", cs.key + ".parquet"))
-        shard_s += time.perf_counter() - t1
-    block_s = time.perf_counter() - t
     later = sum(c.elapsed for c in chunks[1:])
     cs = chunks[min(1, n - 1)]
     prep._res.clear()
@@ -988,17 +1038,15 @@ def phase_runner(engine, res, lo, hi, tmp):
         cs.start_bp, cs.end_bp, window_bp=WINDOW_BP, wing_size=WING_BP))
     fn = prep._kernel_fn("impute", b.Mp, b.Up)
     dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs, *b.compact), 5)
-    log(f"runner impute: the same {n} chunks one by one through blocking "
-        f"impute_region on the run's prepared state, batches rebuilt, each "
-        f"frame written as parquet: {block_s:.3f}s, {shard_s:.3f}s of it "
-        f"the writes = {block_s / n * 1e3:.1f} ms per chunk (the runner's "
-        f"chunks after the first, manifest rewrites included: {later:.3f}s "
-        f"= {later / max(n - 1, 1) * 1e3:.1f} ms per chunk; its whole run, "
+    log(f"runner impute: the chunks after the first took {later:.3f}s = "
+        f"{later / max(n - 1, 1) * 1e3:.1f} ms per chunk (the whole run, "
         f"join and panel upload included: {wall:.3f}s); chunk {cs.key} "
         f"({len(b.plans)} windows, Mp={b.Mp}, Up={b.Up}): batch build "
         f"{build_s * 1e3:.1f} ms, impute_region on the built batch "
         f"{region_s * 1e3:.1f} ms wall (median of 3), its kernels "
-        f"{dev_ms:.3f} ms on the card (CUDA events, median of 5)")
+        f"{dev_ms:.3f} ms on the card (CUDA events, median of 5); the "
+        f"rest of a chunk is its shard write and the manifest's")
+    checks = {"runner": batch_checks(f"runner chunk {cs.key}", prep, b)}
     del b
 
     # resume: a new runner over the same directory skips every chunk
@@ -1039,14 +1087,15 @@ def phase_runner(engine, res, lo, hi, tmp):
     stats, wall, counts2, _ = timed_run(rf, dev, resume=True)
     log(f"runner impute, failed chunk resumed: {stats}, launches {counts2}; "
         f"against the first run: "
-        + hold_same(rf.collect(), got, "resumed run vs first run"))
+        + hold_same(rf.collect(), got, "resumed run vs first run",
+                    exact=True))
     if stats != {"done": 1, "failed": 0, "skipped": n - 1} or \
             counts2["weighted_gram_t1"] < 2 or \
             (n > 1 and counts2["weighted_gram_t1"]
              >= by_path["runner"]["weighted_gram_t1"]):
         raise AssertionError("the resume did not retry the failed chunk "
                              "alone")
-    return by_path, prep
+    return by_path, prep, checks
 
 
 def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
@@ -1056,7 +1105,7 @@ def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
     8 (ld over the first LD_CHUNKS chunks only)."""
     dev = engine.device
     make, _, chunk_bp = runner_maker(engine, lo, hi, tmp)
-    by_path = {}
+    by_path, checks = {}, {}
 
     # qcat: phase 7's qcat_region over the whole region
     rq = make("qcat", analysis="qcat")
@@ -1079,7 +1128,13 @@ def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
         f"{same and bool(np.array_equal(q['qcat_t'], qcat_ref['qcat_t']))}")
     if not (same and dr <= SAME_TOL) or counts["weighted_gram_t1"] < 2 * n:
         raise AssertionError("runner qcat disagrees with qcat_region")
-    del rq
+    # the kernels on one chunk's batch (the run's prepared state)
+    cs = list(rq.chunks.values())[min(1, n - 1)]
+    prep = rq._prepared()
+    checks["runner qcat"] = batch_checks(
+        f"runner qcat chunk {cs.key}", prep,
+        prep._region_batch(cs.start_bp, cs.end_bp, WINDOW_BP, WING_BP))
+    del rq, prep
     torch.cuda.empty_cache()
 
     # ld: phase 6's ld_region (the default i16tri fetch), over a
@@ -1114,7 +1169,22 @@ def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
         f"most), bit-equal={ld_equal}")
     if not ld_dr <= ld_tol:
         raise AssertionError("runner ld disagrees with ld_region")
-    del rl, blocks
+    # the kernels on the last chunk's LD launch and on the gather of the
+    # measured half it read
+    cs = list(rl.chunks.values())[-1]
+    prep = rl._prepared()
+    _, args, Mp = prep._ld_batch(
+        prep._ld_windows(cs.start_bp, cs.end_bp, WINDOW_BP), "i16tri")
+    checks["runner ld"] = {
+        "weighted_gram_t1": k1_check(
+            f"runner ld chunk {cs.key} mm",
+            (args[0], args[0], *segments(prep), args[3], args[3], Mp, Mp,
+             True), 3),
+        "gather_rows": k2_check(
+            "runner ld measured half", prep._device_panel(),
+            prep._half_rows(1, prep._res[("half", 1)][0]), 3,
+            device_too=False)}
+    del rl, blocks, prep, args
     torch.cuda.empty_cache()
 
     # jepeg: phase 8's jepegmix genes, partitioned by their first SNP
@@ -1130,7 +1200,19 @@ def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
         f"equal={same}")
     if not (rel <= GENE_RTOL and same) or counts["gather_rows"] < 1:
         raise AssertionError("runner jepeg disagrees with jepeg_region")
-    return by_path
+    # K2 on the gene buckets of one chunk (genes by their first SNP)
+    pg = rj._prepared()
+    cs = max(rj.chunks.values(),
+             key=lambda c: len(pg._select(c.start_bp, c.end_bp)))
+    idx = pg._gene_inputs(pg._select(cs.start_bp, cs.end_bp))[0]
+    panel = pg._device_panel()
+    buckets = genekernels._buckets([len(g) for g in idx], panel.shape[1],
+                                   1 << 26)
+    checks["runner jepeg"] = {"gather_rows": k2_check(
+        f"runner jepeg chunk {cs.key}, {len(idx)} genes in {len(buckets)} "
+        f"bucket(s)", panel, genekernels._bucket_rows(buckets, idx), 3,
+        device_too=False)}
+    return by_path, checks
 
 
 def phase_stream(store, dev, tmp):
@@ -1140,7 +1222,7 @@ def phase_stream(store, dev, tmp):
     t = time.perf_counter()
     pf = PanelFiles(*write_panel(os.path.join(tmp, "stream"), store.desc,
                                  store.index.iloc[:n], store.G[:n],
-                                 store.af[:n]))
+                                 store.af[:n], level=STREAM_ZLIB_LEVEL))
     write_s = time.perf_counter() - t
     lo = int(store.index["bp"].iloc[0])
     hi = int(store.index["bp"].iloc[n - 1])
@@ -1161,8 +1243,9 @@ def phase_stream(store, dev, tmp):
     decoded = PanelStore.from_bgzf(pf, chrom=22)
     decode_s = time.perf_counter() - t
     log(f"stream: wrote {n} SNPs x {store.G.shape[1]} subjects as bgzf "
-        f"({os.path.getsize(pf.data_file) / 2**20:.1f} MiB) in "
-        f"{write_s:.1f}s with the Python writer; whole file decoded in "
+        f"({os.path.getsize(pf.data_file) / 2**20:.1f} MiB at zlib level "
+        f"{STREAM_ZLIB_LEVEL}) in {write_s:.1f}s with the Python writer; "
+        f"whole file decoded in "
         f"{decode_s:.2f}s; dosages equal="
         f"{bool(np.array_equal(decoded.G, store.G[:n]))}; {len(inp)} "
         f"measured SNPs, {n_windows} windows, chunks of "
@@ -1203,7 +1286,7 @@ def phase_stream(store, dev, tmp):
         f"prefetched {[p.meta['prefetched'] for p in decodes]}; "
         f"prepare_chunk {[round(p.elapsed, 3) for p in prepares]} s; "
         f"against the resident runner: "
-        + hold_same(got, ref, "streaming vs resident runner")
+        + hold_same(got, ref, "streaming vs resident runner", exact=True)
         + f", max|d af1mix| "
         f"{float(np.abs(got['af1mix'] - ref['af1mix']).max()):.1e} (a "
         f"float64 product over another number of rows)")
@@ -1213,7 +1296,16 @@ def phase_stream(store, dev, tmp):
             counts["gather_rows"] < 2 * len(rs.chunks):
         raise AssertionError("streaming: a chunk after the first was not "
                              "prefetched, or a chunk launched no kernel")
-    return counts, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp, ref
+    # the kernels on the last chunk's batch: its own decoded store, its
+    # own device panel (decoded and prepared again as the run did)
+    cs = list(rs.chunks.values())[-1]
+    prep = rs._prepared(cs)
+    checks = batch_checks(
+        f"streaming chunk {cs.key}", prep,
+        prep._region_batch(cs.start_bp, cs.end_bp, WINDOW_BP, WING_BP))
+    del prep, rs
+    torch.cuda.empty_cache()
+    return counts, checks, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp, ref
 
 
 def read_tsv(path):
@@ -1257,7 +1349,8 @@ def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
         f"launches {c2}, the same file="
         f"{open(out1).read() == open(out2).read()}; against the Python "
         f"runner on the same chunks: "
-        + hold_same(g1, runner_ref, "cli impute-genome vs GenomeRunner"))
+        + hold_same(g1, runner_ref, "cli impute-genome vs GenomeRunner",
+                    exact=True))
     if by_path["cli impute-genome"]["weighted_gram_t1"] < 2 or \
             by_path["cli impute-genome"]["gather_rows"] < 2 or \
             c2["weighted_gram_t1"] or c2["gather_rows"] or \
@@ -1274,6 +1367,16 @@ def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
         raise AssertionError("cli --status does not show the run done")
 
     store = PanelStore.load(cache)
+    # the kernels on the batch of impute-genome's first chunk, built as
+    # the command builds it: the cached store, the default AF cut-off
+    checks = {}
+    run = GenomeEngine(store, device=dev, device_linalg=True).prepare_mix(
+        inp, pop_wgt, af1_cutoff=0.01)
+    checks["cli impute-genome"] = batch_checks(
+        "cli impute-genome, first chunk", run,
+        run._region_batch(lo, min(lo + chunk_bp - 1, hi), WINDOW_BP,
+                          WING_BP))
+    del run
     for cmd, extra, cutoff, method in (
             ("impute-region", ["--device-linalg"], 0.01, "impute_region"),
             ("qcat-region", [], 0.05, "qcat_region")):
@@ -1284,9 +1387,13 @@ def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
                            ).prepare_mix(inp, pop_wgt, af1_cutoff=cutoff)
         ref = getattr(run, method)(lo, hi, window_bp=WINDOW_BP,
                                    wing_size=WING_BP)
+        checks["cli " + cmd] = batch_checks(
+            "cli " + cmd, run,
+            run._region_batch(lo, hi, WINDOW_BP, WING_BP))
         del run
         if cmd == "impute-region":
-            text = hold_same(got, ref, "cli impute-region vs impute_region")
+            text = hold_same(got, ref, "cli impute-region vs impute_region",
+                             exact=True)
         else:
             same = len(got) == len(ref) and all(
                 np.array_equal(got[c].to_numpy(), ref[c].to_numpy())
@@ -1294,9 +1401,9 @@ def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
             dt = float(np.abs(got["qcat_t"].to_numpy()
                               - ref["qcat_t"].to_numpy()).max()
                        ) if same else float("inf")
-            text = (f"rows and qcat_m equal={same}, max|dt| {dt:.3e} (tol "
-                    f"{SAME_TOL:g})")
-            if not (same and dt <= SAME_TOL):
+            text = (f"rows and qcat_m equal={same}, max|dt| {dt:.3e} (held "
+                    f"to 0: batches of the same size)")
+            if not (same and dt == 0.0):
                 raise AssertionError("cli qcat-region disagrees with "
                                      "qcat_region")
         log(f"cli {cmd}: {wall:.3f}s, {len(got)} rows, launches "
@@ -1304,7 +1411,7 @@ def phase_cli(dev, tmp, pf, zfile, inp, pop_wgt, lo, hi, chunk_bp,
         if by_path["cli " + cmd]["weighted_gram_t1"] < 2 or \
                 by_path["cli " + cmd]["gather_rows"] < 1:
             raise AssertionError(f"cli {cmd} launched no kernel")
-    return by_path
+    return by_path, checks
 
 
 def phase_window(prep, res, lo, hi, first_host):
@@ -1352,7 +1459,12 @@ def phase_window(prep, res, lo, hi, first_host):
     counts = read_counts()
     log(f"device impute_window: launches over {len(picks)} windows x 4 "
         f"calls {counts}")
-    return counts, worst
+    # the kernels on the middle window's own one-window batch
+    a, b = spans[picks[len(picks) // 2]]
+    checks = batch_checks(
+        f"impute_window {picks[len(picks) // 2]}", prep,
+        prep._region_batch(a, b, b - a + 1, WING_BP, slot="window"))
+    return counts, worst, checks
 
 
 def phase_trace(prep, lo):
@@ -1512,7 +1624,7 @@ def k4_check(dtype, cluster, x8, reps=5):
         f"{ms:.4f} ms per call, bound {b_ms:.4f} ms ({b_by}) = "
         f"{b_ms / ms:.1%} of bound, x.sum(1) {lib:.4f} ms, plain "
         f"{pms:.4f} ms{fmt_device(dev)}; device-only share of bound "
-        f"{b_ms / dev['device_ms']:.1%}")
+        + (f"{b_ms / dev['device_ms']:.1%}" if dev else "not measured"))
     if bad:
         raise AssertionError(f"K4 {dtype} cluster {cluster} wrong at "
                              f"{bad[:5]} rows")
@@ -1583,21 +1695,26 @@ def main():
     torch.cuda.empty_cache()
     jepeg_launches, jepeg, annot = phase_jepeg(engine)
     with tempfile.TemporaryDirectory(prefix="gauss_smoke_") as tmp:
-        runner_launches, prep = phase_runner(engine, res, lo, hi, tmp)
+        runner_launches, prep, later = phase_runner(engine, res, lo, hi,
+                                                    tmp)
         # phase 12's single windows run here, on phase 10's prepared
         # state, which is then released: the peaks below are each run's own
-        window_launches, window_dz = phase_window(prep, res, lo, hi,
-                                                  first_host)
+        window_launches, window_dz, later["impute_window"] = phase_window(
+            prep, res, lo, hi, first_host)
         phase_trace(prep, lo)
         del prep
         torch.cuda.empty_cache()
-        runner_launches.update(phase_runner_analyses(
+        counts, checks = phase_runner_analyses(
             engine, lo, hi, tmp, ld_ref, qcat_ref,
-            jepeg["jepegmix"].pop("frame"), annot))
+            jepeg["jepegmix"].pop("frame"), annot)
+        runner_launches.update(counts)
+        later.update(checks)
         del ld_ref, qcat_ref
         jepeg["jepeg"].pop("frame")
-        stream_launches, *stream = phase_stream(engine.store, dev, tmp)
-        cli_launches = phase_cli(dev, tmp, *stream)
+        stream_launches, later["streaming"], *stream = phase_stream(
+            engine.store, dev, tmp)
+        cli_launches, checks = phase_cli(dev, tmp, *stream)
+        later.update(checks)
         del stream
     torch.cuda.empty_cache()
     log(f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} after every "
@@ -1632,6 +1749,11 @@ def main():
         "int4_dot": {"probe7": k3},
         "resident_rowsum": {"probe7": k4},
     }
+    # the later paths' own batches (runner chunks, one window, a streamed
+    # chunk, the command line's regions)
+    for path, c in later.items():
+        for kname, check in c.items():
+            checked[kname][path] = check
     top = {"weighted_gram_t1": kernels["weighted_gram_t1"],
            "gather_rows": kernels["gather_rows"],
            "int4_dot": k3["K1 yardstick 55040x1280x34176"],

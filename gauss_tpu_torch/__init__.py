@@ -22,8 +22,8 @@ Ported so far:
 * the checkpointed genome runner (``models.runner.GenomeRunner``:
   ``manifest.json`` ledger, one parquet shard per chunk, resume and
   restart, the analyses impute / qcat / ld / jepeg, resident and
-  streaming panels, impute chunks pipelined through
-  ``impute_region_async``) and its phase tracer (``utils.timing``:
+  streaming panels, one chunk at a time) and its phase tracer
+  (``utils.timing``:
   ``Tracer``, ``device_trace`` on torch.profiler);
 * the command line (``cli.py``, ``python -m gauss_tpu_torch <cmd>``):
   gauss_tpu's subcommands and arguments, plus ``--device`` (default

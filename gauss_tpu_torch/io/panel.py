@@ -213,6 +213,7 @@ def write_panel(
     index_df: pd.DataFrame,
     genotypes: np.ndarray,
     afs: Optional[np.ndarray] = None,
+    level: int = 6,
 ) -> Tuple[str, str, str]:
     """Write a panel in the reference wire format.
 
@@ -225,6 +226,8 @@ def write_panel(
         by panel population order.
     afs: optional float64 [n_snps, num_pops]; computed from genotypes
         when omitted.
+    level: zlib level of both bgzf files' blocks (BgzfWriter's); the
+        decoded content does not depend on it.
 
     Returns (index_file, data_file, pop_desc_file).
     """
@@ -243,7 +246,7 @@ def write_panel(
     # data file first: records each row's virtual offset for the index.
     fpos = np.empty(n, dtype=np.int64)
     digits = (genotypes + ord("0")).astype(np.uint8)
-    with BgzfWriter(data_file) as w:
+    with BgzfWriter(data_file, level=level) as w:
         for i in range(n):
             fields = [digits[i, bounds[k]:bounds[k + 1]].tobytes()
                       for k in range(desc.num_pops)]
@@ -257,7 +260,7 @@ def write_panel(
         af1ref = index_df["af1ref"].to_numpy()
     else:
         af1ref = genotypes.mean(axis=1) / 2.0
-    with BgzfWriter(index_file) as w:
+    with BgzfWriter(index_file, level=level) as w:
         for i in range(n):
             row = index_df.iloc[i]
             w.write(

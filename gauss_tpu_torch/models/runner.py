@@ -18,9 +18,8 @@ virtual-offset index.  This module replaces that:
 * ``resume=True`` skips completed chunks and retries failed ones, so a
   preempted job continues where it stopped.
 
-A chunk's ``elapsed`` is its own time: its preparation and dispatch plus
-its own fetch and shard write, not the next chunk's host work that runs
-between the two on the pipelined impute path.
+Chunks run one at a time, so a chunk's ``elapsed`` is its own time: its
+preparation, its kernels, its fetch and its shard write.
 """
 
 from __future__ import annotations
@@ -291,34 +290,11 @@ class GenomeRunner:
 
     def _run_queue(self, queue, stats, executor,
                    max_failures: Optional[int]) -> None:
-        # impute chunks pipeline on the device path: chunk N's region
-        # dispatch is asynchronous (impute_region_async), so its fetch
-        # + parquet write happen WHILE chunk N+1 computes on the device
-        # -- one chunk pending at a time: the engine keeps the newest
-        # aligned batch only, and its memory cap leaves room for two
-        pending = None                      # (cs, dispatch seconds, handle)
-
-        def finish(p):
-            cs0, dispatch_s, h = p
-            exc = None
-            t1 = time.time()
-            try:
-                self._record_done(cs0, h.result())
-                stats["done"] += 1
-            except KeyboardInterrupt:
-                raise
-            except Exception as e:          # failure tolerance
-                self._record_fail(cs0, e)
-                stats["failed"] += 1
-                exc = e
-            # its own dispatch plus its own fetch and write: what ran in
-            # between belongs to the chunk dispatched meanwhile
-            cs0.elapsed = dispatch_s + (time.time() - t1)
-            self._save_manifest()
-            if (exc is not None and max_failures is not None
-                    and stats["failed"] >= max_failures):
-                raise exc
-
+        # one chunk at a time, each fetched and written before the next is
+        # prepared: a chunk's kernels are a small part of its wall (the
+        # batch build and the shard write are the rest), and a loop that
+        # kept one chunk's handle pending while the next was dispatched
+        # gained nothing measurable on an H100 (profile_runner.py)
         for qi, cs in enumerate(queue):
             if executor is not None and qi + 1 < len(queue):
                 nxt = queue[qi + 1]
@@ -326,17 +302,10 @@ class GenomeRunner:
                     self._prefetch[nxt.key] = executor.submit(
                         self._decode_chunk_store, nxt)
             t0 = time.time()
-            h = None
             try:
                 with self.tracer.phase("chunk", key=cs.key):
                     run = self._prepared(cs)
-                    if (self.analysis == "impute"
-                            and self.engine.device_linalg):
-                        h = run.impute_region_async(
-                            cs.start_bp, cs.end_bp,
-                            window_bp=self.window_bp,
-                            wing_size=self.wing_size)
-                    elif self.analysis == "impute":
+                    if self.analysis == "impute":
                         df = run.impute_region(cs.start_bp, cs.end_bp,
                                                window_bp=self.window_bp,
                                                wing_size=self.wing_size)
@@ -350,17 +319,11 @@ class GenomeRunner:
                         blocks = run.ld_region(cs.start_bp, cs.end_bp,
                                                window_bp=self.window_bp)
                         df = self._save_ld_blocks(cs, blocks)
-                if h is None:
-                    self._record_done(cs, df)
-                    stats["done"] += 1
+                self._record_done(cs, df)
+                stats["done"] += 1
             except KeyboardInterrupt:
                 raise
             except Exception as e:  # failure tolerance: record + continue
-                # the chunk is now FAILED even if its dispatch had
-                # already produced a handle (e.g. the tracer phase
-                # raised afterwards): drop the handle so the finish()
-                # path cannot re-record it as done
-                h = None
                 self._record_fail(cs, e)
                 stats["failed"] += 1
                 if (max_failures is not None
@@ -368,19 +331,8 @@ class GenomeRunner:
                     cs.elapsed = time.time() - t0
                     self._save_manifest()
                     raise
-            if h is not None:
-                # the previous chunk's fetch runs OUTSIDE this chunk's
-                # try: a finish() failure (incl. a max_failures
-                # re-raise) is attributed to ITS chunk, never recorded
-                # against the one just dispatched
-                prev, pending = pending, (cs, time.time() - t0, h)
-                if prev is not None:
-                    finish(prev)
-                continue
             cs.elapsed = time.time() - t0
             self._save_manifest()
-        if pending is not None:
-            finish(pending)
 
     def _ld_matrix_path(self, cs: ChunkState) -> str:
         return os.path.join(self.run_dir, "results", f"{cs.key}_cormat.npz")

@@ -38,6 +38,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import numpy as np
@@ -132,6 +133,20 @@ def _row_chunk(S: int) -> int:
     return max(1, 2 ** 28 // max(S, 1))
 
 
+@functools.lru_cache(maxsize=16)
+def _pop_consts(pop_sizes, wgts, dev):
+    """(m int32, m f32, alpha f32) [P] on ``dev``: the populations' sizes
+    and alpha_k = w_k m_k / (m_k - 1).  Uploaded once per (populations,
+    device): a host->device copy waits for the stream, and a run prepares
+    a panel per region batch."""
+    m64 = np.asarray(pop_sizes, dtype=np.float64)
+    w64 = np.asarray(wgts, dtype=np.float64)
+    return (torch.tensor(pop_sizes, dtype=torch.int32, device=dev),
+            torch.tensor(pop_sizes, dtype=torch.float32, device=dev),
+            torch.tensor((w64 * m64 / (m64 - 1.0)).astype(np.float32),
+                         device=dev))
+
+
 def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
                            n_rows: Optional[int], spec: WindowKernelSpec):
     """Gather panel rows (K2), then shift them and take per-row statistics.
@@ -186,12 +201,7 @@ def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
         V = (Qp.to(torch.float32) - Sp * (Sp * (1.0 / nf)))[:, 0]
         return X, Sp, Mu, V
 
-    m_i32 = torch.tensor(spec.pop_sizes, dtype=torch.int32, device=dev)
-    mf = torch.tensor(spec.pop_sizes, dtype=torch.float32, device=dev)
-    m64 = np.asarray(spec.pop_sizes, dtype=np.float64)
-    w64 = np.asarray(spec.wgts, dtype=np.float64)
-    alpha = torch.tensor((w64 * m64 / (m64 - 1.0)).astype(np.float32),
-                         device=dev)
+    m_i32, mf, alpha = _pop_consts(spec.pop_sizes, spec.wgts, dev)
     c = torch.clamp(torch.round(Ssum.to(torch.float32) / mf), 0, 2
                     ).to(torch.int32)
     Sp = (Ssum - m_i32 * c).to(torch.float32)

@@ -234,6 +234,24 @@ def test_device_window_equals_its_rows_of_the_region(setup):
         _assert_region_close(alone, host)
 
 
+def test_device_windows_leave_the_region_batch_cached(setup):
+    """Single windows are cached apart from region batches: a loop over
+    windows between two calls on a region keeps the region's batch (the
+    same object, not rebuilt) and holds one window's batch at a time."""
+    _, t = _runs(setup, "mix")
+    lo, hi, kw = setup["lo"], setup["hi"], setup["kw"]
+    t.impute_region(lo, hi, **kw)
+    batch = t._region_batch(lo, hi, kw["window_bp"], kw["wing_size"])
+    for span in _windows(setup):
+        t.impute_window(*span, kw["wing_size"])
+    assert t._region_batch(lo, hi, kw["window_bp"],
+                           kw["wing_size"]) is batch
+    for slot, n in (("batch", 1), ("window", 1), ("batch asm", 1),
+                    ("window asm", 1)):
+        assert len([k for k in t._res if isinstance(k, tuple)
+                    and k[0] == slot]) == n
+
+
 def test_host_engine_window_is_the_float64_path(setup):
     _, t = _runs(setup, "mix", device_linalg=False)
     a, b = _windows(setup)[1]

@@ -418,9 +418,9 @@ class _BoomHandle:
 
 def test_fetch_failure_attributed_to_its_chunk(tmp_path, setup,
                                                monkeypatch):
-    """Pipelined impute: a failure that surfaces when a chunk's handle is
-    fetched is recorded against that chunk, not against the one whose
-    dispatch triggered the fetch."""
+    """A failure that surfaces when a chunk's handle is fetched is
+    recorded against that chunk, as in gauss_tpu's pipelined runner (the
+    port fetches each chunk before it prepares the next)."""
     rj = _planned(_jax(setup, tmp_path / "j"))
     rt = _planned(_torch(setup, tmp_path / "t"))
     stats_j = _run_with_failure(monkeypatch, JRunner, rj, 1, _BoomHandle())
@@ -458,12 +458,12 @@ def test_max_failures_stops_the_run(tmp_path, setup, monkeypatch,
 
 
 def test_elapsed_is_the_chunks_own_time(tmp_path, setup, monkeypatch):
-    """A pipelined chunk's elapsed is its own dispatch plus its own fetch
-    and write: chunk 2 is fetched only after chunk 3 was prepared and
-    dispatched, and chunk 3's preparation (slowed here) is not chunk
-    2's.  (Chunk 1 carries the run's one join and is left out.)  The
-    delay is a jump of the runner's clock, not a sleep, so a loaded
-    machine cannot blur the two."""
+    """A chunk's elapsed is its own preparation, kernels, fetch and
+    write: chunk 3's preparation (slowed here) is not chunk 2's, as it is
+    in gauss_tpu's pipelined runner, which fetches chunk 2 only after
+    chunk 3 was dispatched.  (Chunk 1 carries the run's one join and is
+    left out.)  The delay is a jump of the runner's clock, not a sleep,
+    so a loaded machine cannot blur the two."""
     from gauss_tpu_torch.models import runner as runner_mod
     delay = 1000.0
     rt = _planned(_torch(setup, tmp_path / "t"))
