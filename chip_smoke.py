@@ -103,6 +103,28 @@ Phases (each prints its evidence; any failure exits non-zero):
               then released, so that each later run's peak memory is its
               own.
 
+13. mesh   -- GenomeEngine(store, mesh=...) on the bench store: a (1 x 1)
+              mesh on the card (impute_region bit-equal to phase 3's
+              frame: one shard, the same batch of windows, the same T1),
+              then (1 x 2) and (2 x 2) over a repeated card (impute_region
+              within MESH_TOL = 4e-5 of phase 3's in z and info, its first
+              window within TF32_DZ of the float64 host window as phase 5
+              holds one device).  On the (2 x 2) engine:
+              qcat_region against phase 7 (qcat_m equal, r = t /
+              sqrt(m - 3) within SAME_TOL), ld_region "i16tri" against
+              phase 6 (one int16 step), jepegmix genes against phase 8
+              (rtol 1e-12: exact partials over the shards), impute_window
+              on the middle window against phase 12's and a 2-chunk
+              GenomeRunner against phase 10's rows (MESH_TOL);
+              impute-region --mesh 1x1 on phase 12's cache bit-equal to
+              the Python 1x1 call; with two cards, a (1 x 2) mesh over
+              cuda:0 and cuda:1.  Each path's launches must be the
+              formula's: K1 2 x W x S per impute or qcat slab, W x S per
+              LD slab, K2 2 x W x S per aligned batch (W window groups of
+              S subject shards).  K1 (mm, um) and K2 against their plain
+              versions on shard 0's own inputs (checked_by_path "mesh");
+              each mesh's region ms beside phase 3's.
+
 Phases 10 to 12 also hold K1 and K2 against their plain versions on each
 path's own launches, as phases 4, 6, 7 and 8 do for theirs: one chunk's
 batch of the impute and qcat runs, the last LD chunk's launch and the
@@ -171,6 +193,8 @@ from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
 from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (LD_I16_MAX_ERR,  # noqa: E402
                                                _gram_segments, win_slab)
+from gauss_tpu_torch.parallel.mesh import (group_width,       # noqa: E402
+                                           make_mesh)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,     # noqa: E402
                                              make_bench_input)
 
@@ -185,6 +209,7 @@ DZ_TOL = 1e-4            # f32 region solves vs the float64 host path
 DR_LD_TOL = 2e-4         # f32 LD vs the float64 weighted correlations
 DR_QCAT_TOL = 1e-4       # f32 qcat correlations vs the float64 host qcat
 GENE_RTOL = 1e-9         # float64 gene statistics, card vs CPU
+MESH_GENE_RTOL = 1e-12   # the same on a mesh: exact partials over shards
 SAME_TOL = 1e-5          # the same windows through the same kernels in a
                          # batch of another size (runner chunks, one
                          # window alone): the triangular solve (looped
@@ -195,6 +220,12 @@ SAME_TOL = 1e-5          # the same windows through the same kernels in a
                          # 3.7e-6 in z.  Equal batch sizes: bit-equal
 TF32_DZ = 2e-5           # phase 5's max|dZ| in full f32 is ~1e-5; with the
                          # tail's matmuls in TF32 it would be ~1e-3
+MESH_TOL = 2 * TF32_DZ   # a mesh against one device: K1 folds each shard's
+                         # exact per-population sums into f32 and the
+                         # partials are added in f32, one device folds them
+                         # all at once; each T1 moves z by up to TF32_DZ
+                         # from an exact T1 (profile_mesh.py), so two of
+                         # them differ by up to twice that
 RUNNER_CHUNKS = 6        # the runner's chunks hold n_windows // 6 windows
 LD_CHUNKS = 3            # the runner's ld run covers this many chunks: its
                          # walls are the host's (each window's matrix is
@@ -457,11 +488,12 @@ def k1_library_ms(A, B, a0, b0, nx, ny, reps):
     return ms
 
 
-def k1_check(label, args, reps=5, plain_reps=2):
+def k1_check(label, args, reps=5, plain_reps=2, s_real=None):
     """K1 against its plain version on one launch's arguments (a sym
     launch's lower triangles mirrored on both sides), then timed beside
     its plain version, its bound and its torch._int_mm yardstick.  Fails
-    above K1_REL_TOL."""
+    above K1_REL_TOL.  ``s_real``: the real subject columns of the bound
+    (default: the segments' sizes; a subject shard holds fewer)."""
     got = gram.weighted_gram_t1(*args)
     ref = gram.weighted_gram_t1_plain(*args)
     if args[-1]:
@@ -475,9 +507,10 @@ def k1_check(label, args, reps=5, plain_reps=2):
     A, B, sizes, _, _, a0, b0, nx, ny, sym = args
     offs = a0.cpu().numpy()
     Wp, S = offs.shape[0], A.shape[1]
-    b_ms, b_by = k1_bound(Wp, nx, ny, sum(sizes), sym)
+    s_real = sum(sizes) if s_real is None else s_real
+    b_ms, b_by = k1_bound(Wp, nx, ny, s_real, sym)
     lib = k1_library_ms(A, B, a0, b0, nx, ny, reps)
-    log(f"K1 {label}: W={Wp} nx={nx} ny={ny} S={S} ({sum(sizes)} real) "
+    log(f"K1 {label}: W={Wp} nx={nx} ny={ny} S={S} ({s_real} real) "
         f"segments={len(sizes)}{' sym' if sym else ''}, "
         f"{int((offs % ROW_TILE != 0).sum())} of {Wp} x offsets not a "
         f"multiple of {ROW_TILE}: max abs err {err:.3e}, rel {rel:.3e} "
@@ -824,9 +857,10 @@ class _IndexOf:
         self.index_df = index
 
 
-def gene_frames_agree(got, ref):
+def gene_frames_agree(got, ref, rtol=GENE_RTOL):
     """(max relative difference of chisq and the p-values, whether df,
-    geneid, top_categ and top_snp are equal) of two jepeg frames."""
+    geneid, top_categ and top_snp are equal) of two jepeg frames; inf
+    when a value is outside ``rtol``."""
     got = got.sort_values("geneid", kind="stable").reset_index(drop=True)
     ref = ref.sort_values("geneid", kind="stable").reset_index(drop=True)
     same = len(got) == len(ref) and all(
@@ -835,7 +869,7 @@ def gene_frames_agree(got, ref):
     rel = 0.0
     for c in ("chisq", "jepeg_pval", "top_categ_pval", "top_snp_pval"):
         a, b = got[c].to_numpy(), ref[c].to_numpy()
-        if not np.allclose(a, b, rtol=GENE_RTOL, atol=1e-300,
+        if not np.allclose(a, b, rtol=rtol, atol=1e-300,
                            equal_nan=True):
             rel = float("inf")
         d = np.abs(a - b) / np.maximum(np.abs(b), 1e-300)
@@ -930,32 +964,36 @@ def impute_diff(got, ref, what):
             float((dz / np.maximum(1.0, np.abs(rz))).max()))
 
 
-def hold_same(got, ref, what, exact=False):
-    """impute_diff held to SAME_TOL, or with ``exact`` (the same windows
+def hold_same(got, ref, what, exact=False, tol=SAME_TOL):
+    """impute_diff held to ``tol``, or with ``exact`` (the same windows
     in batches of the same size) to bit-equality; returns its log text."""
     dz, dinfo, equal, rel = impute_diff(got, ref, what)
     if exact and not equal:
         raise AssertionError(f"{what}: not bit-equal (max|dz| {dz:.3e}, "
                              f"max|dinfo| {dinfo:.3e})")
-    if not (dz <= SAME_TOL and dinfo <= SAME_TOL):
+    if not (dz <= tol and dinfo <= tol):
         raise AssertionError(f"{what}: max|dz| {dz:.3e}, max|dinfo| "
-                             f"{dinfo:.3e} above {SAME_TOL:g}")
+                             f"{dinfo:.3e} above {tol:g}")
     return (f"max|dz| {dz:.3e} ({rel / 2.0 ** -23:.1f} f32 steps of "
             f"max(1, |z|)), max|dinfo| {dinfo:.3e} "
-            f"({'held to bit-equality' if exact else f'tol {SAME_TOL:g}'}), "
+            f"({'held to bit-equality' if exact else f'tol {tol:g}'}), "
             f"bit-equal={equal}")
 
 
 def timed_run(runner, dev, **kw):
     """runner.run(**kw) with the launch counts and the peak-memory mark
-    set to 0 just before: (stats, wall s, counts, peak bytes)."""
+    set to 0 just before: (stats, wall s, counts, peak bytes).  ``dev``:
+    a device, or a mesh's distinct devices, whose peaks are summed."""
+    devs = dev if isinstance(dev, list) else [dev]
     reset_counts()
-    torch.cuda.reset_peak_memory_stats(dev)
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
     t = time.perf_counter()
     stats = runner.run(**kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
-    return stats, wall, read_counts(), torch.cuda.max_memory_allocated(dev)
+    return stats, wall, read_counts(), sum(torch.cuda.max_memory_allocated(d)
+                                           for d in devs)
 
 
 def log_run(label, runner, stats, wall, counts, peak, n_units, unit):
@@ -1021,6 +1059,7 @@ def phase_runner(engine, res, lo, hi, tmp):
     log(f"runner impute: {n} chunks of {chunk_bp // WINDOW_BP} windows "
         f"against phase 3's whole-region call ({len(res)} rows): "
         + hold_same(got, res, "runner collect() vs impute_region"))
+    by_path["runner frame"] = got
 
     # one chunk apart, on the run's own prepared state: its batch build,
     # the region call on the built batch, its kernels on the card
@@ -1095,7 +1134,7 @@ def phase_runner(engine, res, lo, hi, tmp):
              >= by_path["runner"]["weighted_gram_t1"]):
         raise AssertionError("the resume did not retry the failed chunk "
                              "alone")
-    return by_path, prep, checks
+    return by_path, prep, checks, by_path.pop("runner frame")
 
 
 def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
@@ -1464,7 +1503,8 @@ def phase_window(prep, res, lo, hi, first_host):
     checks = batch_checks(
         f"impute_window {picks[len(picks) // 2]}", prep,
         prep._region_batch(a, b, b - a + 1, WING_BP, slot="window"))
-    return counts, worst, checks
+    return counts, worst, checks, (a, b, prep.impute_window(a, b,
+                                                             WING_BP).table)
 
 
 def phase_trace(prep, lo):
@@ -1486,6 +1526,249 @@ def phase_trace(prep, lo):
     for k in ("weighted_gram_kernel", "gather_rows_kernel"):
         if not any(k in n for n in names):
             raise AssertionError(f"device_trace: no {k} record in the trace")
+
+
+def mesh_region(label, store, inp, pop_wgt, mesh, lo, hi):
+    """prepare_mix -> impute_region over ``mesh`` on the bench region:
+    (engine, run, frame, launches of that first call, its batch, region
+    ms on the card).  The launches must be the formula's: K1 twice per
+    slab of every window group's shards, K2 twice per shard of every
+    group of an aligned batch (of every distinct group otherwise)."""
+    eng = GenomeEngine(store, mesh=mesh)
+    t = time.perf_counter()
+    run = eng.prepare_mix(inp, pop_wgt, af1_cutoff=0.01)
+    prep_s = time.perf_counter() - t
+    reset_counts()
+    t = time.perf_counter()
+    got = run.impute_region(lo, hi, window_bp=WINDOW_BP, wing_size=WING_BP)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    counts = read_counts()
+    b = run._region_batch(lo, hi, WINDOW_BP, WING_BP)
+    n_win, n_sub = mesh.shape["window"], mesh.shape["subject"]
+    Wg = b.groups[0].inputs[0].shape[0]
+    slabs = Wg // win_slab(Wg)
+    want = {"weighted_gram_t1": 2 * n_win * n_sub * slabs,
+            "gather_rows": 2 * n_sub * (n_win if b.aligned else
+                                        len(set(mesh.groups())))}
+    fn = run._kernel_fn("impute", b.Mp, b.Up)
+    ms = cuda_ms(lambda: [fn(*g.arrays, *g.inputs, *g.compact)
+                          for g in b.groups], 5)
+    log(f"mesh {label}: {n_win} window group(s) x {n_sub} subject shard(s) "
+        f"on {[str(d) for d in mesh.devices.ravel()]}; prepare_mix "
+        f"{prep_s:.1f}s, first impute_region (incl. shard uploads, K2 "
+        f"gathers, preparation) {first_s:.3f}s; batch "
+        f"{'aligned' if b.aligned else 'shared'}, {len(b.plans)} windows, "
+        f"{Wg} per group ({slabs} slab(s)), Mp={b.Mp}, Up={b.Up}, local "
+        f"S={sum(eng._padded_sizes(run.pop_sizes))}; launches {counts} "
+        f"(formula {want}); region on the card {ms:.3f} ms (CUDA events, "
+        f"median of 5)")
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"mesh {label}: launches {counts}, formula "
+                             f"{want}")
+    return eng, run, got, counts, b, ms
+
+
+def mesh_checks(run, b, reps=3):
+    """K1 (mm, um) and K2 (both gathers) against their plain versions on
+    subject shard 0 of window group 0: its shifted panels, band offsets
+    and gathered row ids."""
+    g = b.groups[0]
+    Xm, Xu = (a[0] if isinstance(a, tuple) else a for a in g.arrays[:2])
+    m0, u0 = g.inputs[0], g.inputs[1]
+    seg = segments(run)
+    s_real = sum(run.engine._spec(run.pop_sizes, run.wgts).valid_counts[0])
+    k1 = sum_checks([
+        k1_check("mesh shard 0 mm", (Xm, Xm, *seg, m0, m0, b.Mp, b.Mp, True),
+                 reps, s_real=s_real),
+        k1_check("mesh shard 0 um", (Xu, Xm, *seg, u0, m0, b.Up, b.Mp,
+                                     False), reps, s_real=s_real)])
+    Wg = m0.shape[0]
+    rows_m, rows_u = run._aligned_rows(b.plans[:Wg], Wg, (b.Mp, b.Up))
+    panel = run._group_panels()[0][0]
+    k2 = sum_checks([
+        k2_check("mesh shard 0 measured rows", panel, rows_m, reps,
+                 device_too=False),
+        k2_check("mesh shard 0 unmeasured rows", panel, rows_u, reps,
+                 device_too=False)])
+    return {"weighted_gram_t1": k1, "gather_rows": k2}
+
+
+def mesh_parity(got, host, label):
+    """A mesh's first window against phase 5's float64 host window: the
+    bar phase 5 holds one device to (TF32_DZ on the imputed rows, the
+    measured rows bit-equal); returns its log text."""
+    win = got[got["bp"] <= host["bp"].max()].reset_index(drop=True)
+    dz, dinfo, _, _ = impute_diff(win, host, f"mesh {label} first window")
+    imp = host["type"].to_numpy() == 0
+    measured = bool(np.array_equal(win["z"].to_numpy()[~imp],
+                                   host["z"].to_numpy()[~imp]))
+    if not (dz <= TF32_DZ and measured):
+        raise AssertionError(f"mesh {label}: first window max|dZ| {dz:.3e} "
+                             f"against the float64 host window (tol "
+                             f"{TF32_DZ:g}), measured rows equal={measured}")
+    return (f"first window against the float64 host window max|dZ| "
+            f"{dz:.3e} (tol {TF32_DZ:g}, as phase 5), max|dInfo| "
+            f"{dinfo:.3e}, measured rows bit-equal")
+
+
+def phase_mesh(dev, store, res, lo, hi, region_ms, refs, tmp, stream):
+    """The engine over device meshes on the bench store: 1x1 (bit-equal
+    to phase 3), 1x2 and 2x2 over the repeated card (SAME_TOL), the 2x2
+    engine's other paths against phases 6-8, 10 and 12, the command line
+    with --mesh 1x1, and a mesh over two cards when there are two."""
+    t0 = time.perf_counter()
+    inp = make_bench_input(store, MEASURED_FRAC)
+    pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
+    by_path, times = {}, {}
+    for shape in ((1, 1), (1, 2)):
+        label = f"{shape[0]}x{shape[1]}"
+        eng, run, got, by_path[f"mesh {label}"], b, times[label] = \
+            mesh_region(label, store, inp, pop_wgt,
+                        make_mesh(*shape, devices=[dev] * (shape[0]
+                                                           * shape[1])),
+                        lo, hi)
+        log(f"mesh {label} impute_region against phase 3's frame: "
+            + hold_same(got, res, f"mesh {label} vs phase 3",
+                        exact=shape == (1, 1), tol=MESH_TOL)
+            + "; " + mesh_parity(got, refs["first_host"], label))
+        del eng, run, got, b
+        torch.cuda.empty_cache()
+
+    mesh = make_mesh(2, 2, devices=[dev] * 4)
+    eng, run, got, by_path["mesh"], b, times["2x2"] = mesh_region(
+        "2x2", store, inp, pop_wgt, mesh, lo, hi)
+    log("mesh 2x2 impute_region against phase 3's frame: "
+        + hold_same(got, res, "mesh 2x2 vs phase 3", tol=MESH_TOL)
+        + "; " + mesh_parity(got, refs["first_host"], "2x2"))
+    checks = mesh_checks(run, b)
+    slabs = b.groups[0].inputs[0].shape[0] // win_slab(
+        b.groups[0].inputs[0].shape[0])
+    del got, b
+    torch.cuda.empty_cache()
+
+    # qcat on the same windows (the cached batch: K1 alone)
+    reset_counts()
+    q = run.qcat_region(lo, hi, window_bp=WINDOW_BP, wing_size=WING_BP)
+    by_path["mesh qcat"] = counts = read_counts()
+    ref = refs["qcat"]
+    same = len(q) == len(ref) and all(
+        np.array_equal(q[c].to_numpy(), ref[c].to_numpy())
+        for c in ("rsid", "bp", "type", "qcat_m"))
+    dt = q["qcat_t"].to_numpy() - ref["qcat_t"].to_numpy() if same else 1.0
+    dr = float(np.abs(dt / np.sqrt(ref["qcat_m"].to_numpy() - 3.0)).max())
+    want = 2 * 4 * slabs
+    log(f"mesh 2x2 qcat_region against phase 7's: rows and qcat_m "
+        f"equal={same}, max|dr| {dr:.3e} (r = t / sqrt(m - 3), tol "
+        f"{SAME_TOL:g}), max|dt| {float(np.abs(dt).max()):.3e}; launches "
+        f"{counts} (formula: K1 {want}, K2 0 on impute's cached batch)")
+    if not (same and dr <= SAME_TOL) or counts["weighted_gram_t1"] != want \
+            or counts["gather_rows"]:
+        raise AssertionError("mesh qcat_region disagrees with phase 7")
+    del q
+    torch.cuda.empty_cache()
+
+    # LD, the default i16tri fetch: one K1 per shard per slab
+    reset_counts()
+    tri = run.ld_region(lo, hi, window_bp=WINDOW_BP)
+    by_path["mesh ld"] = counts = read_counts()
+    W = len(tri)
+    Wg = group_width(W, 2)
+    want = 4 * (Wg // win_slab(Wg))
+    ld_dr = max(float(np.nanmax(np.abs(a["cormat"] - d["cormat"])))
+                for a, d in zip(tri, refs["ld"]))
+    ld_tol = 2 * LD_I16_MAX_ERR + SAME_TOL
+    log(f"mesh 2x2 ld_region (i16tri) against phase 6's: {W} windows, "
+        f"max|dr| {ld_dr:.3e} (tol {ld_tol:.3e}: one int16 step); launches "
+        f"{counts} (K1 formula {want})")
+    if W != len(refs["ld"]) or not ld_dr <= ld_tol or \
+            counts["weighted_gram_t1"] != want:
+        raise AssertionError("mesh ld_region disagrees with phase 6")
+    del tri
+    torch.cuda.empty_cache()
+
+    # jepegmix genes: exact partials over the shards
+    reset_counts()
+    genes = eng.prepare_genes(inp, refs["annot"],
+                              pop_wgt=pop_wgt).jepeg_region()
+    by_path["mesh jepeg"] = counts = read_counts()
+    rel, same = gene_frames_agree(genes, refs["genes"], MESH_GENE_RTOL)
+    log(f"mesh 2x2 jepegmix against phase 8's: {len(genes)} genes, max "
+        f"rel diff {rel:.3e} (tol {MESH_GENE_RTOL:g}), df/geneid/top_categ/"
+        f"top_snp equal={same}; launches {counts}")
+    if not (rel <= MESH_GENE_RTOL and same) or counts["gather_rows"] < 2:
+        raise AssertionError("mesh jepeg disagrees with phase 8")
+    del genes
+
+    # the middle window alone against phase 12's
+    a, c, wref = refs["window"]
+    reset_counts()
+    w = run.impute_window(a, c, WING_BP).table
+    by_path["mesh impute_window"] = counts = read_counts()
+    log(f"mesh 2x2 impute_window [{a}, {c}] against phase 12's: "
+        + hold_same(w, wref, "mesh impute_window vs phase 12", tol=MESH_TOL)
+        + f"; launches {counts}")
+    del run
+    torch.cuda.empty_cache()
+
+    # two chunks of the runner against phase 10's rows
+    make, _, chunk_bp = runner_maker(eng, lo, hi, tmp)
+    end = min(hi, lo + 2 * chunk_bp - 1)
+    r = make("mesh_runner", end_bp=end)
+    stats, wall, counts, peak = timed_run(r, mesh.distinct())
+    by_path["mesh runner"] = counts
+    all_done(r, stats, "mesh runner")
+    got = r.collect()
+    log_run("impute over the 2x2 mesh (2 chunks)", r, stats, wall, counts,
+            peak, int((got["type"] == 0).sum()), "imputed SNPs")
+    ref = refs["runner"]
+    ref = ref[ref["bp"] <= end].reset_index(drop=True)
+    log("mesh runner against phase 10's rows: "
+        + hold_same(got, ref, "mesh runner vs phase 10", tol=MESH_TOL))
+    del r, got, eng
+    torch.cuda.empty_cache()
+
+    # the command line, --mesh 1x1, on phase 12's panel cache
+    pf, zfile, sinp, spop, slo, shi = stream[:6]
+    cache = os.path.join(tmp, "cache")
+    argv = ["impute-region", "--chr", "22", "--start-bp", str(slo),
+            "--end-bp", str(shi), "--pop-wgt-file", os.path.join(tmp,
+                                                                 "wgt.tsv"),
+            "--input-file", zfile, "--window-bp", str(WINDOW_BP),
+            "--wing-size", str(WING_BP), "--panel-cache", cache,
+            "--reference-index-file", pf.index_file, "--reference-data-file",
+            pf.data_file, "--reference-pop-desc-file", pf.pop_desc_file,
+            "--mesh", "1x1", "-o", os.path.join(tmp, "mesh11.tsv")]
+    reset_counts()
+    cli.main(argv)
+    by_path["mesh cli"] = counts = read_counts()
+    ref = GenomeEngine(PanelStore.load(cache), mesh=make_mesh(
+        1, 1, devices=[dev])).prepare_mix(sinp, spop, af1_cutoff=0.01
+                                          ).impute_region(
+        slo, shi, window_bp=WINDOW_BP, wing_size=WING_BP)
+    log(f"cli impute-region --mesh 1x1 against the Python 1x1 call: "
+        + hold_same(read_tsv(os.path.join(tmp, "mesh11.tsv")), ref,
+                    "cli --mesh 1x1 vs Python", exact=True)
+        + f"; launches {counts}")
+
+    if torch.cuda.device_count() >= 2:
+        two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+        eng2, _, got, by_path["mesh 2 cards"], _, times["1x2 cards"] = \
+            mesh_region("1x2 over two cards", store, inp, pop_wgt,
+                        make_mesh(1, 2, devices=two), lo, hi)
+        log("mesh 1x2 over two cards against phase 3's frame: "
+            + hold_same(got, res, "mesh over two cards vs phase 3",
+                        tol=MESH_TOL))
+        del eng2, got
+        torch.cuda.empty_cache()
+    else:
+        log(f"mesh over two cards: skipped, this machine has "
+            f"{torch.cuda.device_count()} card")
+    log("mesh region ms on the card: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in times.items())
+        + f"; phase 3 (one device) {region_ms:.3f}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f}s")
+    return by_path, checks, times
 
 
 def phase_probe_path():
@@ -1694,28 +1977,37 @@ def main():
     del run
     torch.cuda.empty_cache()
     jepeg_launches, jepeg, annot = phase_jepeg(engine)
+    gene_ref = jepeg["jepegmix"].pop("frame")
+    jepeg["jepeg"].pop("frame")
     with tempfile.TemporaryDirectory(prefix="gauss_smoke_") as tmp:
-        runner_launches, prep, later = phase_runner(engine, res, lo, hi,
-                                                    tmp)
+        runner_launches, prep, later, runner_ref = phase_runner(
+            engine, res, lo, hi, tmp)
         # phase 12's single windows run here, on phase 10's prepared
         # state, which is then released: the peaks below are each run's own
-        window_launches, window_dz, later["impute_window"] = phase_window(
-            prep, res, lo, hi, first_host)
+        window_launches, window_dz, later["impute_window"], window_ref = \
+            phase_window(prep, res, lo, hi, first_host)
         phase_trace(prep, lo)
         del prep
         torch.cuda.empty_cache()
         counts, checks = phase_runner_analyses(
-            engine, lo, hi, tmp, ld_ref, qcat_ref,
-            jepeg["jepegmix"].pop("frame"), annot)
+            engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref, annot)
         runner_launches.update(counts)
         later.update(checks)
-        del ld_ref, qcat_ref
-        jepeg["jepeg"].pop("frame")
         stream_launches, later["streaming"], *stream = phase_stream(
             engine.store, dev, tmp)
         cli_launches, checks = phase_cli(dev, tmp, *stream)
         later.update(checks)
-        del stream
+        # phase 13 on the bench store; phase 3's engine and its panel go
+        # first
+        store = engine.store
+        del engine
+        torch.cuda.empty_cache()
+        mesh_launches, later["mesh"], _ = phase_mesh(
+            dev, store, res, lo, hi, region_ms,
+            dict(qcat=qcat_ref, ld=ld_ref, genes=gene_ref, annot=annot,
+                 window=window_ref, runner=runner_ref,
+                 first_host=first_host), tmp, stream)
+        del stream, ld_ref, qcat_ref, gene_ref, window_ref, runner_ref
     torch.cuda.empty_cache()
     log(f"tf32 matmul={torch.backends.cuda.matmul.allow_tf32} after every "
         f"path (set True before phase 3); phase 5 max|dZ| {max_dz:.3e}, "
@@ -1761,7 +2053,7 @@ def main():
     by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
                "jepeg": jepeg_launches, **runner_launches,
                "impute_window": window_launches, "streaming": stream_launches,
-               **cli_launches, "probe7": probe_launches}
+               **cli_launches, **mesh_launches, "probe7": probe_launches}
     # the path each row's "launches" counts: the main path for K1 and K2,
     # the probe for K3 and K4
     own = {"weighted_gram_t1": launches, "gather_rows": launches,

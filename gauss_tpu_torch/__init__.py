@@ -25,11 +25,21 @@ Ported so far:
   streaming panels, one chunk at a time) and its phase tracer
   (``utils.timing``:
   ``Tracer``, ``device_trace`` on torch.profiler);
+* the device mesh (``parallel.mesh``, ``make_mesh``): a (window x
+  subject) grid of devices one process drives, ``GenomeEngine(store,
+  mesh=...)`` running every device path with the panel split into
+  subject shards (K2 and K1 per shard) and the windows or genes split
+  over window groups, and zmix's pair statistics; multi-host runs
+  (``parallel.distributed``): one process per host under torchrun, each
+  with its own window range and ledger, meeting at a barrier and the
+  result shards;
 * the command line (``cli.py``, ``python -m gauss_tpu_torch <cmd>``):
   gauss_tpu's subcommands and arguments, plus ``--device`` (default
-  ``cuda``) on impute-region, qcat-region and impute-genome; the mesh
-  options wait for the multi-GPU port; ``entry.entry(device)``, the
-  resident kernel on a toy batch, and ``utils.goldens``;
+  ``cuda``) on impute-region, qcat-region, impute-genome and zmix,
+  ``--mesh WxS`` and ``impute-genome --multihost``;
+  ``entry.entry(device)``, the resident kernel on a toy batch,
+  ``entry.dryrun_multichip(n, device)``, the mesh paths against one
+  device, and ``utils.goldens``;
 * probe 7 (``probes/probe7_int4.py``): an int4 product (K3) and row sums
   over a block resident in a cluster's shared memory (K4).
 
@@ -68,7 +78,12 @@ def __getattr__(name):
                  "PGC2_SCZ_ANC_Prop": ("gauss_tpu_torch.data",
                                        "PGC2_SCZ_ANC_Prop"),
                  "pgc2_scz_anc_prop": ("gauss_tpu_torch.data",
-                                       "pgc2_scz_anc_prop")})
+                                       "pgc2_scz_anc_prop"),
+                 "make_mesh": ("gauss_tpu_torch.parallel.mesh",
+                               "make_mesh")})
+    if name == "parallel":
+        import importlib
+        return importlib.import_module("gauss_tpu_torch.parallel")
     if name in lazy:
         import importlib
         mod, attr = lazy[name]

@@ -14,7 +14,11 @@ the reference can switch over directly::
 The per-call subcommands (dist .. fiqt) run in float64 on the host.  The
 genome-scale ones (impute-region, qcat-region, impute-genome) build a
 GenomeEngine on ``--device`` (default ``cuda``); with no card and no
-``--device cpu`` they fail with torch's own error.
+``--device cpu`` they fail with torch's own error.  ``--mesh WxS``
+(impute-region, impute-genome, zmix) runs over a (window x subject) mesh
+of --device's type: the first W*S cards, or the CPU repeated W*S times.
+``impute-genome --multihost`` stripes the windows over the processes of
+a torchrun job (parallel/distributed.py).
 """
 
 from __future__ import annotations
@@ -51,6 +55,50 @@ def _device_arg(p: argparse.ArgumentParser):
     p.add_argument("--device", default="cuda",
                    help="torch device of the engine's panel and kernels "
                         "(default cuda; nothing falls back to the CPU)")
+
+
+def _mesh_arg(p: argparse.ArgumentParser, what: str):
+    p.add_argument("--mesh", default=None, metavar="WxS",
+                   help=f"{what} over a (window x subject) mesh of "
+                        "--device's type, e.g. 2x4 (needs W*S cards; the "
+                        "CPU is repeated)")
+
+
+def _mesh_shape(s):
+    """'WxS' -> (W, S), or None; exits on a malformed value."""
+    if not s:
+        return None
+    try:
+        n_win, n_sub = (int(x) for x in s.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"ERROR: --mesh expects WxS (e.g. 2x4), got '{s}'")
+    return n_win, n_sub
+
+
+def _parse_mesh(s, device: str):
+    """'WxS' -> (window x subject) mesh of ``device``'s type, or None:
+    the first W*S CUDA devices, or the CPU W*S times."""
+    shape = _mesh_shape(s)
+    if shape is None:
+        return None
+    import torch
+    from gauss_tpu_torch.parallel.mesh import make_mesh
+    n_win, n_sub = shape
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return make_mesh(n_win, n_sub)
+    return make_mesh(n_win, n_sub, devices=[dev] * (n_win * n_sub))
+
+
+def _engine(store, args, device_linalg: bool):
+    """The GenomeEngine of a command: over --mesh when given, else on
+    --device."""
+    from gauss_tpu_torch.models.genome import GenomeEngine
+    mesh = _parse_mesh(getattr(args, "mesh", None), args.device)
+    if mesh is not None:
+        return GenomeEngine(store, mesh=mesh)
+    return GenomeEngine(store, device=args.device,
+                        device_linalg=device_linalg)
 
 
 def _read_pop_wgt(path: str) -> pd.DataFrame:
@@ -121,6 +169,8 @@ def main(argv=None):
     p.add_argument("--panel-cache", default=None,
                    help="decoded panel cache dir (panel-cache cmd); "
                         "skips the bgzf decode")
+    _mesh_arg(p, "the pair correlations (needs --panel-cache)")
+    _device_arg(p)
 
     for name, pop in [("jepeg", "study"), ("jepegmix", "wgt")]:
         p = sub.add_parser(name)
@@ -184,6 +234,7 @@ def main(argv=None):
     p.add_argument("--panel-cache", default=None,
                    help="use a decoded panel cache dir instead of bgzf")
     p.add_argument("--device-linalg", action="store_true")
+    _mesh_arg(p, "run sharded (implies --device-linalg)")
     _device_arg(p)
 
     p = sub.add_parser("qcat-region",
@@ -237,6 +288,12 @@ def main(argv=None):
                    help="which analysis to run per chunk (ld = "
                         "computeLD; dense matrices land in "
                         "run-dir/results/*_cormat.npz)")
+    _mesh_arg(p, "run sharded")
+    p.add_argument("--multihost", action="store_true",
+                   help="stripe windows across the processes of a torchrun "
+                        "job (MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK); "
+                        "each runs its own ledger under run-dir/hostNNN, "
+                        "process 0 merges")
     _device_arg(p)
 
     args = ap.parse_args(argv)
@@ -295,6 +352,9 @@ def main(argv=None):
             df = fn(args.input_file, **ref, interval=args.interval)
         _emit(df, args.output)
     elif args.cmd == "zmix":
+        if _mesh_shape(args.mesh) and not args.panel_cache:
+            raise SystemExit("ERROR: zmix --mesh requires --panel-cache")
+        mesh = _parse_mesh(args.mesh, args.device)
         if args.panel_cache:
             from gauss_tpu_torch.io import readers
             from gauss_tpu_torch.models import ancestry
@@ -304,7 +364,7 @@ def main(argv=None):
             df = ancestry.zmix_store(store, inp,
                                      percentile=args.percentile,
                                      interval=args.interval,
-                                     level=args.level)
+                                     level=args.level, mesh=mesh)
         else:
             df = gauss_tpu_torch.zmix(args.input_file, **ref,
                                 percentile=args.percentile,
@@ -371,7 +431,7 @@ def main(argv=None):
     elif args.cmd == "impute-region":
         from gauss_tpu_torch.config import PanelFiles
         from gauss_tpu_torch.io import readers
-        from gauss_tpu_torch.models.genome import GenomeEngine, PanelStore
+        from gauss_tpu_torch.models.genome import PanelStore
         if args.panel_cache:
             store = PanelStore.load(args.panel_cache)
         else:
@@ -383,8 +443,7 @@ def main(argv=None):
                                    start_bp=args.start_bp,
                                    end_bp=args.end_bp,
                                    wing_size=args.wing_size)
-        eng = GenomeEngine(store, device=args.device,
-                           device_linalg=args.device_linalg)
+        eng = _engine(store, args, args.device_linalg)
         run = eng.prepare_mix(
             inp, readers.pop_wgt_map_from_df(_read_pop_wgt(args.pop_wgt_file)),
             af1_cutoff=args.af1_cutoff)
@@ -419,13 +478,16 @@ def main(argv=None):
         import os
         from gauss_tpu_torch.config import PanelFiles
         from gauss_tpu_torch.io import readers
-        from gauss_tpu_torch.models.genome import GenomeEngine, PanelStore
+        from gauss_tpu_torch.models.genome import PanelStore
         from gauss_tpu_torch.models.runner import GenomeRunner, MANIFEST
+        from gauss_tpu_torch.parallel import distributed
         from gauss_tpu_torch.utils.timing import Tracer
         if args.af1_cutoff is None:
             # reference qcat/qcatmix default 0.05 (src/qcat.cpp:52-56);
             # everything else 0.01
             args.af1_cutoff = 0.05 if args.analysis == "qcat" else 0.01
+        if args.multihost:
+            distributed.initialize()
         if args.status:
             # read-only: never decode the panel or rewrite the manifest
             mpath = os.path.join(args.run_dir, MANIFEST)
@@ -459,8 +521,7 @@ def main(argv=None):
                                    start_bp=args.start_bp,
                                    end_bp=args.end_bp,
                                    wing_size=args.wing_size)
-        eng = GenomeEngine(store, device=args.device,
-                           device_linalg=not args.host_linalg)
+        eng = _engine(store, args, not args.host_linalg)
         if (args.pop_wgt_file is None) == (args.study_pop is None):
             raise SystemExit("ERROR: exactly one of --pop-wgt-file / "
                              "--study-pop required")
@@ -473,13 +534,26 @@ def main(argv=None):
                 raise SystemExit("ERROR: --analysis jepeg needs "
                                  "--annotation-file")
             annot_df = readers.read_annotation(args.annotation_file)
-        runner = GenomeRunner(
-            args.run_dir, eng, inp, pop_wgt,
-            af1_cutoff=args.af1_cutoff, window_bp=args.window_bp,
-            wing_size=args.wing_size, chunk_bp=args.chunk_bp,
-            tracer=Tracer(verbose=True, log_file=args.trace_log),
-            panel_files=panel_files, analysis=args.analysis,
-            study_pop=args.study_pop, annot_df=annot_df)
+
+        def _make_runner(run_dir, lo=None, hi=None):
+            return GenomeRunner(
+                run_dir, eng, inp, pop_wgt,
+                af1_cutoff=args.af1_cutoff, window_bp=args.window_bp,
+                wing_size=args.wing_size, chunk_bp=args.chunk_bp,
+                tracer=Tracer(verbose=True, log_file=args.trace_log),
+                panel_files=panel_files, analysis=args.analysis,
+                study_pop=args.study_pop, annot_df=annot_df)
+        if args.multihost:
+            try:
+                df = distributed.run_genome_multihost(
+                    _make_runner, args.chr, args.start_bp, args.end_bp,
+                    args.window_bp, args.run_dir)
+            finally:
+                distributed.shutdown()
+            if df is not None:
+                _emit(df, args.output)
+            return
+        runner = _make_runner(args.run_dir)
         runner.plan(args.chr, args.start_bp, args.end_bp)
         stats = runner.run(resume=not args.restart)
         print(f"[gauss_tpu_torch] chunks done={stats['done']} "

@@ -164,17 +164,27 @@ def _bucket_rows(buckets, gene_idx) -> np.ndarray:
     return ids
 
 
-def _in_bucket_order(per_gene, buckets) -> list:
-    return [per_gene[gi] for _, batch in buckets for gi in batch]
-
-
 def _gather_genes(G_dev, idx_dev, B, npad):
     """K2 gather of one bucket's gene rows: int8 [B, npad, S_dev]."""
     return gather_rows(G_dev, idx_dev).reshape(B, npad, G_dev.shape[1])
 
 
+def _group_rows(buckets, gene_idx, n_groups: int):
+    """Each window group's share of every bucket: per group, its
+    (npad, gene ids) per bucket -- the bucket's genes split into
+    n_groups consecutive blocks of ceil(B / n_groups) slots, a slot past
+    the bucket's genes left empty (None: all rows -1, weights 0)."""
+    out = [[] for _ in range(n_groups)]
+    for npad, batch in buckets:
+        Bg = -(-len(batch) // n_groups)
+        for g in range(n_groups):
+            part = batch[g * Bg:(g + 1) * Bg]
+            out[g].append((npad, part + [None] * (Bg - len(part))))
+    return out
+
+
 def gene_stats_resident(
-    G_dev: torch.Tensor,
+    G_dev,
     gene_idx: List[np.ndarray],
     Ws: List[np.ndarray],              # per gene [6, n_g] float64
     zs: List[np.ndarray],              # per gene [n_g] float64
@@ -182,6 +192,7 @@ def gene_stats_resident(
     wgts: Optional[Sequence[float]] = None,
     lam: float = 0.1,
     max_batch_elems: int = 1 << 26,
+    local_pop_sizes: Optional[Sequence[int]] = None,
 ) -> List[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Per-gene category statistics (CovU [6, 6], WWt [6, 6], U [6],
     float64) with every O(n^2) step on G_dev's device: K2 gathers each
@@ -192,51 +203,86 @@ def gene_stats_resident(
     WWt = W W^T (src/gene.cpp:594-648).  The host keeps only the k <= 6
     pruning and chi-square (src/jepegmix.cpp:122-139).
 
-    Every bucket's ids, W and z go to the device in one copy each before
-    the first launch, and the results come back in one copy after the
+    With a mesh, G_dev is one tuple of subject-shard panels per window
+    group (parallel/mesh.shard_columns order, local population widths
+    ``local_pop_sizes``, zero columns at the end): each bucket's genes
+    are split over the window groups (the last slots of a group may be
+    empty), every shard gathers its rows (K2) and takes its partials,
+    and their sum -- exact integers, so the same for any shard count --
+    goes through the float64 tail once on the group's lead device.
+
+    Each group's ids, W and z go to its devices in one copy each before
+    the first launch, and its results come back in one copy after the
     last."""
     if not gene_idx:
         return []
-    dev = G_dev.device
-    bounds = _stat_bounds(pop_sizes, wgts)
-    buckets = _buckets([len(g) for g in gene_idx], int(G_dev.shape[1]),
-                       max_batch_elems)
-    ids = _bucket_rows(buckets, gene_idx)
-    # W^T and z in the same row layout (zero on pad rows)
-    Wz = np.zeros((len(ids), 7))
-    real = np.flatnonzero(ids >= 0)
-    Wz[real, :6] = np.concatenate([np.asarray(w).T for w in
-                                   _in_bucket_order(Ws, buckets)])
-    Wz[real, 6] = np.concatenate(_in_bucket_order(zs, buckets))
-    ids = torch.from_numpy(ids).to(dev)
-    Wz = torch.from_numpy(Wz).to(dev)
-    outs = []
-    o = 0
-    for npad, batch in buckets:
-        B = len(batch)
-        idx = ids[o:o + B * npad]
-        Wb = Wz[o:o + B * npad, :6].reshape(B, npad, 6).transpose(1, 2)
-        zb = Wz[o:o + B * npad, 6].reshape(B, npad)
-        o += B * npad
-        real = (idx >= 0).reshape(B, npad)
-        with full_f32_matmul():    # the f32 partials hold exact integers
-            partials = _pop_partials(_gather_genes(G_dev, idx, B, npad),
-                                     bounds)
-        CorG = _corr_from_pop_partials(*partials, pop_sizes, wgts)
-        CorG = torch.where(real[:, :, None] & real[:, None, :], CorG, 0.0)
-        # the ridge diagonal as the reference writes it: a real SNP's NaN
-        # diagonal stays NaN (NaN * 0)
-        eye = torch.eye(npad, dtype=torch.float64, device=dev)
-        CorG = CorG * (1.0 - eye) + (1.0 + lam) * eye
-        WCor = torch.einsum("bkn,bnm->bkm", Wb, CorG)
-        outs.append((torch.einsum("bkm,bjm->bkj", WCor, Wb),
-                     torch.einsum("bkn,bjn->bkj", Wb, Wb),
-                     torch.einsum("bkn,bn->bk", Wb, zb)))
-    CovU, WWt, U = (torch.cat(x).cpu().numpy() for x in zip(*outs))
+    if isinstance(G_dev, torch.Tensor):
+        groups = [(G_dev,)]
+        bounds = _stat_bounds(pop_sizes, wgts)
+        S_all = int(G_dev.shape[1])
+    else:
+        groups = [tuple(g) for g in G_dev]
+        bounds = _stat_bounds(local_pop_sizes, wgts)
+        S_all = -(-sum(int(m) for m in pop_sizes) // 16) * 16
+    buckets = _buckets([len(g) for g in gene_idx], S_all, max_batch_elems)
     res: List[Optional[Tuple]] = [None] * len(gene_idx)
-    for j, gi in enumerate(_in_bucket_order(range(len(gene_idx)),
-                                            buckets)):
-        res[gi] = (CovU[j], WWt[j], U[j])
+    for panels, gbuckets in zip(groups, _group_rows(buckets, gene_idx,
+                                                    len(groups))):
+        lead = panels[0].device
+        ids = np.full(sum(npad * len(b) for npad, b in gbuckets), -1,
+                      dtype=np.int32)
+        # W^T and z in the same row layout (zero on pad rows and slots)
+        Wz = np.zeros((len(ids), 7))
+        o = 0
+        for npad, batch in gbuckets:
+            for gi in batch:
+                if gi is not None:
+                    n = len(gene_idx[gi])
+                    ids[o:o + n] = gene_idx[gi]
+                    Wz[o:o + n, :6] = np.asarray(Ws[gi]).T
+                    Wz[o:o + n, 6] = zs[gi]
+                o += npad
+        ids_dev = {}
+        for p in panels:
+            if p.device not in ids_dev:
+                ids_dev[p.device] = torch.from_numpy(ids).to(p.device)
+        Wz = torch.from_numpy(Wz).to(lead)
+        outs = []
+        o = 0
+        for npad, batch in gbuckets:
+            B = len(batch)
+            if B == 0:
+                continue
+            Wb = Wz[o:o + B * npad, :6].reshape(B, npad, 6).transpose(1, 2)
+            zb = Wz[o:o + B * npad, 6].reshape(B, npad)
+            partials = None
+            for p in panels:
+                idx = ids_dev[p.device][o:o + B * npad]
+                with full_f32_matmul():  # the f32 partials: exact integers
+                    part = _pop_partials(_gather_genes(p, idx, B, npad),
+                                         bounds)
+                partials = part if partials is None else tuple(
+                    a + b.to(lead) for a, b in zip(partials, part))
+            real = torch.from_numpy(ids[o:o + B * npad] >= 0).to(
+                lead).reshape(B, npad)
+            o += B * npad
+            CorG = _corr_from_pop_partials(*partials, pop_sizes, wgts)
+            CorG = torch.where(real[:, :, None] & real[:, None, :], CorG,
+                               0.0)
+            # the ridge diagonal as the reference writes it: a real SNP's
+            # NaN diagonal stays NaN (NaN * 0)
+            eye = torch.eye(npad, dtype=torch.float64, device=lead)
+            CorG = CorG * (1.0 - eye) + (1.0 + lam) * eye
+            WCor = torch.einsum("bkn,bnm->bkm", Wb, CorG)
+            outs.append((torch.einsum("bkm,bjm->bkj", WCor, Wb),
+                         torch.einsum("bkn,bjn->bkj", Wb, Wb),
+                         torch.einsum("bkn,bn->bk", Wb, zb)))
+        if not outs:
+            continue
+        CovU, WWt, U = (torch.cat(x).cpu().numpy() for x in zip(*outs))
+        for j, gi in enumerate(gi for _, batch in gbuckets for gi in batch):
+            if gi is not None:
+                res[gi] = (CovU[j], WWt[j], U[j])
     return res
 
 

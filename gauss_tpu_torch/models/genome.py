@@ -11,6 +11,10 @@ row gathers at preparation, K1 Grams per slab of windows, f32 solves):
 ``impute_region``, ``ld_region`` / ``ld_window`` and ``qcat_region``.
 Gene tests gather each bucket of genes with K2 from the panel on the
 device (``prepare_genes`` -> ``PreparedGenes.jepeg_region``).
+With a device mesh (``GenomeEngine(store, mesh=...)``, parallel/mesh.py)
+every device path runs over its (window x subject) grid: the panel is
+split into subject shards, each window group takes a contiguous block of
+the windows (or genes), and every shard runs K2 and K1 on its columns.
 A float64 host path (``PreparedRun.impute_window``, and the per-call
 ``models/dist``, ``models/ld``, ``models/qcat``) reproduces the
 reference arithmetic and is the parity anchor.
@@ -37,8 +41,9 @@ from ..ops.window_kernel import (LD_FETCH, WindowKernelSpec, _dequant_i16,
                                  build_resident_ld_kernel,
                                  build_resident_qcat_kernel,
                                  build_resident_region_kernel,
-                                 pad_pop_segments, prepare_resident_panel,
-                                 unpack_tri_i16, win_slab)
+                                 pad_pop_segments, unpack_tri_i16, win_slab)
+from ..parallel.mesh import (group_width, place_shards, prepare_group,
+                             shard_columns, sharded_spec)
 from ..utils.special import pchisq_upper, pnorm_two_sided
 from . import ancestry
 from .jepeg import (_categ_arrays, _gene_runs, empty_gene_frame,
@@ -103,6 +108,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _pad_cols(G: np.ndarray, multiple: int) -> np.ndarray:
+    """G with zero columns appended up to a multiple of ``multiple`` (at
+    least one), as a new C-contiguous int8 array."""
+    S = G.shape[1]
+    out = np.zeros((G.shape[0], _round_up(max(S, 1), multiple)),
+                   dtype=np.int8)
+    out[:, :S] = G
+    return out
+
+
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """One host array of a batch copied to ``device`` (pageable memory: on
     a card the copy waits for the work queued on the stream before it)."""
@@ -110,14 +125,15 @@ def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def _aligned_max_bytes(device: torch.device) -> int:
-    """Largest aligned-layout batch (int8 band bytes) before the shared
-    layout takes over.  GAUSS_ALIGNED_MAX_BYTES overrides.
+    """Largest aligned-layout batch (int8 band bytes) on ``device`` before
+    the shared layout takes over.  GAUSS_ALIGNED_MAX_BYTES overrides.
 
     Rule: a third of the memory free on the device when the batch is
     built.  A new aligned batch is built before the previous one is
     evicted, so two can coexist; the last third is left for the region
     tail's [W, Mp, Mp] f32 temporaries.  On the CPU the same rule applies
-    to the host's physical memory."""
+    to the host's physical memory.  With a mesh the rule holds per
+    device, for the bands of every shard it holds."""
     env = os.environ.get("GAUSS_ALIGNED_MAX_BYTES")
     if env:
         return int(env)
@@ -136,24 +152,46 @@ class WindowResult:
 
 
 class GenomeEngine:
-    """Windowed analyses over a PanelStore on one explicit device."""
+    """Windowed analyses over a PanelStore on one explicit device or
+    device mesh."""
 
-    def __init__(self, store: PanelStore, device,
+    def __init__(self, store: PanelStore, device=None,
                  settings: Settings = DEFAULT_SETTINGS,
-                 device_linalg: bool = False):
+                 device_linalg: bool = False, mesh=None):
         """``device``: where the panel and the region kernel live (a
         ``torch.device`` or its name); the engine never picks one.
+        ``mesh``: instead of ``device``, a (window x subject) device mesh
+        (parallel/mesh.make_mesh): the panel is split into subject shards,
+        shard j on device [i, j] of every window group i, and each window
+        group runs a contiguous block of a region's windows.  Exactly one
+        of the two is given; a mesh implies device_linalg.
         ``device_linalg``: impute_region runs the batched f32 region
         kernel there; otherwise it loops the float64 host path.  LD and
         qcat regions always run their resident kernels there.  Building
         an engine changes no process-wide setting: the resident kernels
         switch TF32 off around their own matmuls
         (``ops/window_kernel.full_f32_matmul``)."""
+        if (device is None) == (mesh is None):
+            raise ValueError("exactly one of device / mesh required")
+        if mesh is not None:
+            if tuple(mesh.axis_names) != ("window", "subject"):
+                raise ValueError("engine mesh must have axes ('window', "
+                                 f"'subject'), got {mesh.axis_names}")
+            device_linalg = True
+            device = mesh.devices[0, 0]
         self.store = store
         self.device = torch.device(device)
+        self.mesh = mesh
         self.settings = settings
         self.device_linalg = device_linalg
         self._fns: Dict = {}
+
+    def _groups(self) -> List[Tuple[torch.device, ...]]:
+        """The devices of each window group, shard by shard: the mesh's
+        rows, or the engine's one device."""
+        if self.mesh is None:
+            return [(self.device,)]
+        return self.mesh.groups()
 
     # -- selection --------------------------------------------------------
     def _select(self, pop_flags: np.ndarray):
@@ -294,25 +332,32 @@ class GenomeEngine:
                    interval: Optional[int] = None,
                    sup_level: bool = False) -> np.ndarray:
         return ancestry.prep_zmix5_store(self.store, input_z_df,
-                                         percentile, interval, sup_level)
+                                         percentile, interval, sup_level,
+                                         mesh=self.mesh)
 
     def zmix(self, input_z_df: pd.DataFrame, percentile: float = 0.9,
              interval: int = 10, level: str = "population") -> pd.DataFrame:
         return ancestry.zmix_store(self.store, input_z_df, percentile,
-                                   interval, level)
+                                   interval, level, mesh=self.mesh)
 
     # -- region kernels ----------------------------------------------------
     def _padded_sizes(self, sizes) -> Tuple[int, ...]:
-        """Per-pop device-panel segment widths: K1's K_CHUNK multiples
-        (the zero padding is exact)."""
-        return tuple(_round_up(int(s), K_CHUNK) for s in sizes)
+        """Per-pop segment widths of one device panel (of one subject
+        shard with a mesh): K1's K_CHUNK multiples (the zero padding is
+        exact)."""
+        n = 1 if self.mesh is None else self.mesh.shape["subject"]
+        return tuple(_round_up(-(-int(s) // n), K_CHUNK) for s in sizes)
 
     def _spec(self, sizes, wgts) -> WindowKernelSpec:
+        kw = dict(lam=self.settings.lambda_,
+                  min_abs_eig=self.settings.min_abs_eig,
+                  eig_cutoff=self.settings.eig_cutoff)
+        if self.mesh is not None:
+            return sharded_spec(sizes, wgts, self.mesh.shape["subject"],
+                                **kw)
         return WindowKernelSpec(
             pop_sizes=sizes, pop_sizes_padded=self._padded_sizes(sizes),
-            wgts=wgts, lam=self.settings.lambda_,
-            min_abs_eig=self.settings.min_abs_eig,
-            eig_cutoff=self.settings.eig_cutoff)
+            wgts=wgts, **kw)
 
     def _kernel_fn(self, kind: str, sizes, wgts, *shape):
         """The resident kernel ``kind`` ("impute", "ld", "qcat") built for
@@ -326,18 +371,48 @@ class GenomeEngine:
 
 
 @dataclasses.dataclass
+class GroupBatch:
+    """One window group's share of a RegionBatch, on its devices.  Window
+    w's bands start at row m_t0[w] / u_t0[w] of the arrays' panels: its
+    first measured / unmeasured row."""
+
+    inputs: tuple          # (m_t0, u_t0, Z1, m_mask, u_mask), W padded
+    compact: tuple         # (wi, ci): the group's real unmeasured rows
+    arrays: tuple          # (Xm, Xu, Spm, Spu, Mum, Muu, Vu); Xm, Xu one
+                           # tensor per subject shard with a mesh
+
+
+@dataclasses.dataclass
 class RegionBatch:
     """Device inputs of one region's windows (see
-    PreparedRun._region_batch).  Window w's bands start at row
-    m_t0[w] / u_t0[w] of the arrays' panels: its first measured /
-    unmeasured row."""
+    PreparedRun._region_batch): one GroupBatch per window group, the
+    groups holding consecutive blocks of the windows.  With one group
+    (no mesh) its fields read through: ``inputs``, ``compact``,
+    ``arrays``."""
 
     plans: list            # (lo, hi, window plan) per window
-    inputs: tuple          # (m_t0, u_t0, Z1, m_mask, u_mask), W padded
-    compact: tuple         # (wi, ci): the real unmeasured rows, in order
-    arrays: tuple          # (Xm, Xu, Spm, Spu, Mum, Muu, Vu)
+    groups: list           # GroupBatch per window group
     Mp: int
     Up: int
+    aligned: bool          # the per-window aligned layout (own panels)
+
+    def _one(self) -> GroupBatch:
+        if len(self.groups) != 1:
+            raise ValueError(f"a batch over {len(self.groups)} window "
+                             f"groups: read .groups")
+        return self.groups[0]
+
+    @property
+    def inputs(self) -> tuple:
+        return self._one().inputs
+
+    @property
+    def compact(self) -> tuple:
+        return self._one().compact
+
+    @property
+    def arrays(self) -> tuple:
+        return self._one().arrays
 
 
 @dataclasses.dataclass
@@ -349,19 +424,29 @@ class PreparedRun:
     pop_sizes: Tuple[int, ...]
     wgts: Optional[Tuple[float, ...]]
     _G_dev: Optional[torch.Tensor] = None
+    _G_shards: Optional[list] = None
     _res: Dict = dataclasses.field(default_factory=dict)
+
+    def _selected(self) -> np.ndarray:
+        """The selected populations' columns of the store's panel (the
+        panel itself when it selects all)."""
+        G = self.engine.store.G
+        cols = self.subj_cols
+        full = len(cols) == G.shape[1] and bool(
+            np.array_equal(cols, np.arange(G.shape[1])))
+        return G if full else G[:, cols]
 
     def _device_panel(self) -> torch.Tensor:
         """Selected-population int8 dosage matrix on the engine's device,
         uploaded once and reused by every region.  Population segments
         are zero-padded to K_CHUNK columns (exact: zero columns add 0 to
-        every statistic)."""
+        every statistic).  A mesh engine holds subject shards instead
+        (_group_panels)."""
+        if self.engine.mesh is not None:
+            raise ValueError("a mesh engine's panel is split into subject "
+                             "shards: _group_panels()")
         if self._G_dev is None:
-            G = self.engine.store.G
-            cols = self.subj_cols
-            full = len(cols) == G.shape[1] and bool(
-                np.array_equal(cols, np.arange(G.shape[1])))
-            Gh = G if full else G[:, cols]
+            Gh = self._selected()
             padded = self.engine._padded_sizes(self.pop_sizes)
             if padded != tuple(self.pop_sizes):
                 Gh, got = pad_pop_segments(Gh, self.pop_sizes,
@@ -370,6 +455,34 @@ class PreparedRun:
             Gh = np.require(Gh, dtype=np.int8, requirements=["C", "W"])
             self._G_dev = torch.from_numpy(Gh).to(self.engine.device)
         return self._G_dev
+
+    def _group_panels(self) -> List[Tuple[torch.Tensor, ...]]:
+        """Each window group's panels, one per subject shard, uploaded
+        once: with a mesh, shard j (its slice of every population,
+        parallel/mesh.shard_columns, segments padded to K_CHUNK) on device
+        [i, j], once per distinct (shard, device); else the one device
+        panel."""
+        if self.engine.mesh is None:
+            return [(self._device_panel(),)]
+        if self._G_shards is None:
+            blocks, _, _ = shard_columns(self._selected(), self.pop_sizes,
+                                         self.engine.mesh.shape["subject"])
+            self._G_shards = place_shards(blocks, self.engine.mesh)
+        return self._G_shards
+
+    def _prepare(self, rows: np.ndarray, gi: int = 0):
+        """(X, Sp, Mu, V) of panel rows ``rows`` (-1: a zero row) on window
+        group gi: K2 gathers on every shard, the sums added on the group's
+        lead, every shard shifted (parallel/mesh.prepare_group)."""
+        return prepare_group(self._group_panels()[gi], rows,
+                             self.engine._spec(self.pop_sizes, self.wgts))
+
+    def _gkey(self, gi: int) -> tuple:
+        """Cache-key suffix of window group gi's device state: groups on
+        the same devices share it (none without a mesh)."""
+        if self.engine.mesh is None:
+            return ()
+        return (self.engine._groups()[gi],)
 
     def _window_plan(self, start_bp: int, end_bp: int, wing_size: int):
         """Row selection for one window, or None if below the reference
@@ -467,26 +580,21 @@ class PreparedRun:
         return WindowResult(table=res, n_measured=M, n_unmeasured=U)
 
     # -- resident region batches ---------------------------------------------
-    def _upload_rows(self, rows: np.ndarray) -> torch.Tensor:
-        return _to_device(rows.astype(np.int32), self.engine.device)
-
-    def _resident_half(self, typ_val: int, cap: int):
+    def _resident_half(self, typ_val: int, cap: int, gi: int = 0):
         """Shared layout, one half: the bp-sorted measured (typ_val 1) or
         unmeasured (0) panel rows, gathered (K2), shifted, with per-row
         statistics (prepare_resident_panel), plus ``cap`` zero rows so
-        every band of up to ``cap`` rows stays inside.  Cached per half;
+        every band of up to ``cap`` rows stays inside, on window group
+        gi's devices (every group holds every row).  Cached per half;
         rebuilt only if a larger cap than cached is requested, so LD,
         which reads only the measured half, never builds the other."""
-        key = ("half", typ_val)
+        key = ("half", typ_val) + self._gkey(gi)
         cached = self._res.get(key)
         if cached is not None and cached[0] >= cap:
             return cached[1]
         if cached is not None:       # grow monotonically: alternating
             cap = max(cap, cached[0])  # callers must not thrash rebuilds
-        rows = self._half_rows(typ_val, cap)
-        half = prepare_resident_panel(
-            self._device_panel(), self._upload_rows(rows), None,
-            self.engine._spec(self.pop_sizes, self.wgts))
+        half = self._prepare(self._half_rows(typ_val, cap), gi)
         self._res[key] = (cap, half)
         return half
 
@@ -501,30 +609,36 @@ class PreparedRun:
         rows[:n] = self.g_row[rows_tbl]
         return rows
 
-    def _resident_arrays(self, Mp: int, Up: int):
+    def _resident_arrays(self, Mp: int, Up: int, gi: int = 0):
         """Shared layout: both halves (see _resident_half), one pair for
         every region of this run, as (Xm, Xu, Spm, Spu, Mum, Muu, Vu).
-        The tuple is kept as self._res["arrays"] and stays the same object
-        until a half is rebuilt (already-built batches hold the OLD
-        arrays, still valid for their own bands)."""
-        Xm, Spm, Mum, _ = self._resident_half(1, Mp)
-        Xu, Spu, Muu, Vu = self._resident_half(0, Up)
+        The tuple is kept as self._res["arrays"] (with a mesh, per window
+        group's devices) and stays the same object until a half is
+        rebuilt (already-built batches hold the OLD arrays, still valid
+        for their own bands)."""
+        Xm, Spm, Mum, _ = self._resident_half(1, Mp, gi)
+        Xu, Spu, Muu, Vu = self._resident_half(0, Up, gi)
         arrays = (Xm, Xu, Spm, Spu, Mum, Muu, Vu)
-        old = self._res.get("arrays")
+        gk = self._gkey(gi)
+        key = ("arrays",) + gk if gk else "arrays"
+        old = self._res.get(key)
         if old is None or any(a is not b for a, b in zip(arrays, old)):
-            self._res["arrays"] = arrays
-        return self._res["arrays"]
+            self._res[key] = arrays
+        return self._res[key]
 
-    def _window_batch(self, plans, Mp: int, Up: int, m_t0, u_t0):
+    def _window_batch(self, plans, Mp: int, Up: int, m_t0, u_t0,
+                      Wp: Optional[int] = None):
         """Padded Z1/mask batch + int32 band row offsets; W is padded to
-        a slab multiple with empty windows."""
+        ``Wp`` (default: a slab multiple) with empty windows."""
         W = len(plans)
-        Wp = _round_up(W, win_slab(W))
+        if Wp is None:
+            Wp = _round_up(W, win_slab(W))
         m_off = np.zeros(Wp, dtype=np.int32)
         u_off = np.zeros(Wp, dtype=np.int32)
         m_off[:W], u_off[:W] = m_t0, u_t0
-        m_off[W:] = m_off[W - 1]     # padding windows: any valid band
-        u_off[W:] = u_off[W - 1]
+        if W:                        # padding windows: any valid band
+            m_off[W:] = m_off[W - 1]
+            u_off[W:] = u_off[W - 1]
         Z1b = np.zeros((Wp, Mp), dtype=np.float32)
         m_maskb = np.zeros((Wp, Mp), dtype=np.float32)
         u_maskb = np.zeros((Wp, Up), dtype=np.float32)
@@ -535,11 +649,11 @@ class PreparedRun:
             u_maskb[i, :U] = 1.0
         return m_off, u_off, Z1b, m_maskb, u_maskb
 
-    def _resident_batch_from_plans(self, plans):
-        """Shared-layout batch: window w is the row band starting at its
-        first measured / unmeasured row of the bp-sorted panels.  Windows
-        select bp ranges of the bp-sorted table, so their rows are
-        contiguous runs of the measured / unmeasured row lists."""
+    def _shared_offsets(self, plans):
+        """Shared layout: window w is the row band starting at its first
+        measured / unmeasured row of the bp-sorted panels, (m_t0, u_t0).
+        Windows select bp ranges of the bp-sorted table, so their rows
+        are contiguous runs of the measured / unmeasured row lists."""
         typ = self.table["type"].to_numpy()
         m_all = np.flatnonzero(typ == 1)
         u_all = np.flatnonzero(typ == 0)
@@ -554,9 +668,8 @@ class PreparedRun:
                                    "bp-sorted table")
             m_t0.append(mpos)
             u_t0.append(upos)
-        Mp = _round_up(max(p[2][2] for p in plans), ROW_TILE)
-        Up = _round_up(max(p[2][3] for p in plans), ROW_TILE)
-        return self._window_batch(plans, Mp, Up, m_t0, u_t0), Mp, Up
+        return np.asarray(m_t0, dtype=np.int32), np.asarray(u_t0,
+                                                             dtype=np.int32)
 
     @staticmethod
     def _aligned_bands(plans) -> Tuple[int, int]:
@@ -564,11 +677,16 @@ class PreparedRun:
         return (_round_up(max(p[2][2] for p in plans), ROW_TILE),
                 _round_up(max(p[2][3] for p in plans), ROW_TILE))
 
-    def _aligned_rows(self, plans) -> Tuple[np.ndarray, np.ndarray]:
+    def _aligned_rows(self, plans, Wp: Optional[int] = None,
+                      bands: Optional[Tuple[int, int]] = None
+                      ) -> Tuple[np.ndarray, np.ndarray]:
         """Panel row ids the aligned layout gathers (K2's index vectors):
-        window w's rows start at w*Mp / w*Up, -1 pads each band."""
-        Mp, Up = self._aligned_bands(plans)
-        Wp = _round_up(len(plans), win_slab(len(plans)))
+        window w's rows start at w*Mp / w*Up, -1 pads each band.  ``Wp``
+        windows (default: a slab multiple) of heights ``bands`` (default:
+        _aligned_bands(plans))."""
+        Mp, Up = bands or self._aligned_bands(plans)
+        if Wp is None:
+            Wp = _round_up(len(plans), win_slab(len(plans)))
         rows_m = np.full(Wp * Mp, -1, dtype=np.int32)
         rows_u = np.full(Wp * Up, -1, dtype=np.int32)
         for i, (_, _, plan) in enumerate(plans):
@@ -577,29 +695,31 @@ class PreparedRun:
             rows_u[i * Up:i * Up + U] = self.g_row[u_rows]
         return rows_m, rows_u
 
-    def _resident_aligned_batch(self, plans):
-        """Per-window ALIGNED layout: each window's measured/unmeasured
-        rows are gathered into a dedicated band of their own (pad rows =
-        -1 sentinels between bands).  Measured-extended windows overlap
-        (wings), so measured rows repeat across bands (~2.4x the rows of
-        the shared layout).  Returns (inputs, arrays, Mp, Up); arrays
+    def _aligned_group(self, plans, Wg: int, Mp: int, Up: int, gi: int):
+        """Per-window ALIGNED layout of one window group: each window's
+        measured/unmeasured rows are gathered into a dedicated band of
+        their own (pad rows = -1 sentinels between bands; a group's
+        padding windows own empty bands).  Measured-extended windows
+        overlap (wings), so measured rows repeat across bands (~2.4x the
+        rows of the shared layout).  Returns (m_t0, u_t0, arrays); arrays
         belong to this batch alone."""
-        Mp, Up = self._aligned_bands(plans)
-        W = len(plans)
-        Wp = _round_up(W, win_slab(W))
-        rows_m, rows_u = self._aligned_rows(plans)
-        inputs = self._window_batch(plans, Mp, Up,
-                                    np.arange(W) * Mp, np.arange(W) * Up)
-        # padding windows own their (empty) bands
-        inputs[0][W:] = np.arange(W, Wp) * Mp
-        inputs[1][W:] = np.arange(W, Wp) * Up
-        spec = self.engine._spec(self.pop_sizes, self.wgts)
-        G_dev = self._device_panel()
-        Xm, Spm, Mum, _ = prepare_resident_panel(
-            G_dev, self._upload_rows(rows_m), None, spec)
-        Xu, Spu, Muu, Vu = prepare_resident_panel(
-            G_dev, self._upload_rows(rows_u), None, spec)
-        return inputs, (Xm, Xu, Spm, Spu, Mum, Muu, Vu), Mp, Up
+        rows_m, rows_u = self._aligned_rows(plans, Wg, (Mp, Up))
+        Xm, Spm, Mum, _ = self._prepare(rows_m, gi)
+        Xu, Spu, Muu, Vu = self._prepare(rows_u, gi)
+        return (np.arange(Wg) * Mp, np.arange(Wg) * Up,
+                (Xm, Xu, Spm, Spu, Mum, Muu, Vu))
+
+    def _aligned_fits(self, plans, Wg: int, Mp: int, Up: int) -> bool:
+        """Whether the aligned layout's bands (rows x padded subject axis
+        of every shard) stay under _aligned_max_bytes on every device:
+        a device counts the real windows of every group shard it holds."""
+        S_pad = int(sum(self.engine._padded_sizes(self.pop_sizes)))
+        n_bytes = {}
+        for gi, devs in enumerate(self.engine._groups()):
+            n = len(plans[gi * Wg:(gi + 1) * Wg])
+            for d in devs:
+                n_bytes[d] = n_bytes.get(d, 0) + n * (Mp + Up) * S_pad
+        return all(b <= _aligned_max_bytes(d) for d, b in n_bytes.items())
 
     def _region_batch(self, start_bp: int, end_bp: int, window_bp: int,
                       wing_size: int, slot: str = "batch"
@@ -624,13 +744,9 @@ class PreparedRun:
         # the aligned layout gives each batch DEDICATED device panels
         # (GBs at genome scale); keep only the newest such batch so a
         # sweep over distinct spans does not accumulate one per region
-        # (repeat calls on one span still hit the cache above).  Aligned
-        # batches are the ones whose arrays are NOT the shared
-        # self._res["arrays"]; a shared-layout batch may also fail that
-        # identity test after a cap-growing rebuild -- evicting it too
-        # costs only a host-side rebuild, never device memory.
+        # (repeat calls on one span still hit the cache above)
         def _aligned(b):
-            return b is not None and b.arrays is not self._res.get("arrays")
+            return b is not None and b.aligned
         if _aligned(out):
             for k in [k for k in self._res
                       if isinstance(k, tuple) and k[0] == slot
@@ -653,29 +769,44 @@ class PreparedRun:
             lo = hi + 1
         if not plans:
             return None
+        groups = self.engine._groups()
+        Wg = group_width(len(plans), len(groups))
         # the aligned layout repeats measured bands across wings; above
         # the byte cap (rows x padded subject axis) the shared bp-sorted
         # layout takes over
-        Mp_a, Up_a = self._aligned_bands(plans)
-        S_pad = int(sum(self.engine._padded_sizes(self.pop_sizes)))
-        n_bytes = len(plans) * (Mp_a + Up_a) * S_pad
-        if n_bytes <= _aligned_max_bytes(self.engine.device):
-            inputs, arrays, Mp, Up = self._resident_aligned_batch(plans)
-        else:
-            inputs, Mp, Up = self._resident_batch_from_plans(plans)
-            arrays = self._resident_arrays(Mp, Up)
-        # compaction indices, window by window (_region_assembly's order):
-        # the impute kernel keeps only REAL unmeasured rows
-        wi = np.concatenate([np.full(p[2][3], i, dtype=np.int64)
-                             for i, p in enumerate(plans)])
-        ci = np.concatenate([np.arange(p[2][3], dtype=np.int64)
-                             for p in plans])
-        # upload the pass-invariant batch inputs once: repeated region
-        # calls then launch with no host->device traffic
-        dev = self.engine.device
-        inputs = tuple(_to_device(a, dev) for a in inputs)
-        compact = tuple(_to_device(a, dev) for a in (wi, ci))
-        return RegionBatch(plans, inputs, compact, arrays, Mp, Up)
+        Mp, Up = self._aligned_bands(plans)
+        aligned = self._aligned_fits(plans, Wg, Mp, Up)
+        if not aligned:
+            m_all, u_all = self._shared_offsets(plans)
+        parts = []
+        for gi, devs in enumerate(groups):
+            sl = slice(gi * Wg, (gi + 1) * Wg)
+            gplans = plans[sl]
+            if aligned:
+                m_t0, u_t0, arrays = self._aligned_group(gplans, Wg, Mp, Up,
+                                                         gi)
+            else:
+                m_t0, u_t0 = m_all[sl], u_all[sl]
+                arrays = self._resident_arrays(Mp, Up, gi)
+            inputs = self._window_batch(gplans, Mp, Up, m_t0[:len(gplans)],
+                                        u_t0[:len(gplans)], Wg)
+            if aligned:              # padding windows own their empty bands
+                inputs[0][:] = m_t0
+                inputs[1][:] = u_t0
+            # compaction indices, window by window (_region_assembly's
+            # order): the impute kernel keeps only REAL unmeasured rows
+            wi = np.concatenate([np.full(p[2][3], i, dtype=np.int64)
+                                 for i, p in enumerate(gplans)]
+                                + [np.zeros(0, dtype=np.int64)])
+            ci = np.concatenate([np.arange(p[2][3], dtype=np.int64)
+                                 for p in gplans]
+                                + [np.zeros(0, dtype=np.int64)])
+            # upload the pass-invariant batch inputs once: repeated region
+            # calls then launch with no host->device traffic
+            parts.append(GroupBatch(
+                tuple(_to_device(a, devs[0]) for a in inputs),
+                tuple(_to_device(a, devs[0]) for a in (wi, ci)), arrays))
+        return RegionBatch(plans, parts, Mp, Up, aligned)
 
     def _kernel_fn(self, kind: str, *shape):
         return self.engine._kernel_fn(kind, self.pop_sizes, self.wgts,
@@ -721,24 +852,27 @@ class PreparedRun:
         After the first call for a span (which builds and caches its
         batch), nothing here synchronizes with the device: the Grams, the
         tail and the compaction are queued on the current stream of the
-        engine's device, followed by the copy of the compacted [2, N] output into pinned host memory.
-        Queuing the copy here, before the next region's kernels, lets
-        ``RegionHandle.result()`` wait for THIS region only, so region N's
-        assembly overlaps region N+1's kernels (impute_regions)."""
+        engine's device (of each window group's devices with a mesh),
+        followed by the copy of the compacted [2, N] output into pinned
+        host memory.  Queuing the copy here, before the next region's
+        kernels, lets ``RegionHandle.result()`` wait for THIS region only,
+        so region N's assembly overlaps region N+1's kernels
+        (impute_regions)."""
         if not self.engine.device_linalg:
             raise ValueError("impute_region_async requires device_linalg")
         b = self._region_batch(start_bp, end_bp, window_bp, wing_size,
                                slot=_slot)
         if b is None:
-            return RegionHandle(None, None, None)
+            return RegionHandle([], None)
         fn = self._kernel_fn("impute", b.Mp, b.Up)
-        out, ready = _copy_to_host(fn(*b.arrays, *b.inputs, *b.compact))
+        outs = [_copy_to_host(fn(*g.arrays, *g.inputs, *g.compact))
+                for g in b.groups]
         ck = (_slot + " asm", (start_bp, end_bp, window_bp, wing_size))
         asm = self._res.get(ck)
         if asm is None:
             asm = self._region_assembly(b.plans)
             self._res[ck] = asm
-        return RegionHandle(out, ready, asm)
+        return RegionHandle(outs, asm)
 
     def impute_regions(self, spans, window_bp: int = 1_000_000,
                        wing_size: int = 500_000, depth: int = 2):
@@ -799,18 +933,20 @@ class PreparedRun:
             pos = hi + 1
         return windows
 
-    def _ld_batch(self, windows, fetch: str):
-        """(fn, args, Mp) of one resident LD launch over ``windows``:
-        fn(*args) -> the packed [Wp, ...] output.  Window w's band is the
-        measured shared-layout panel from its first row; Mp is the
-        largest window's row count rounded up to ROW_TILE and W is padded
-        to a slab multiple."""
+    def _ld_batches(self, windows, fetch: str):
+        """(fn, [args per window group], Mp) of the resident LD launches
+        over ``windows``: fn(*args) -> a group's packed [Wg, ...] output,
+        the groups holding consecutive blocks of the windows.  Window w's
+        band is the measured shared-layout panel from its first row; Mp
+        is the largest window's row count rounded up to ROW_TILE and each
+        group's windows are padded to a slab multiple."""
         m_all = np.flatnonzero(self.table["type"].to_numpy() == 1)
+        groups = self.engine._groups()
         W = len(windows)
-        Wp = _round_up(W, win_slab(W))
+        Wg = group_width(W, len(groups))
         Mp = _round_up(max(len(r) for r in windows), ROW_TILE)
-        m_t0 = np.zeros(Wp, dtype=np.int32)
-        m_mask = np.zeros((Wp, Mp), dtype=np.float32)
+        m_t0 = np.zeros(Wg * len(groups), dtype=np.int32)
+        m_mask = np.zeros((Wg * len(groups), Mp), dtype=np.float32)
         for i, m_rows in enumerate(windows):
             pos = int(np.searchsorted(m_all, m_rows[0]))
             if m_all[pos + len(m_rows) - 1] != m_rows[-1]:
@@ -818,12 +954,24 @@ class PreparedRun:
                                    "bp-sorted table")
             m_t0[i] = pos
             m_mask[i, :len(m_rows)] = 1.0
-        m_t0[W:] = m_t0[W - 1]         # padding windows: any valid band
-        Xm, Spm, Mum, _ = self._resident_half(1, Mp)
-        dev = self.engine.device
-        args = (Xm, Spm, Mum, _to_device(m_t0, dev),
-                _to_device(m_mask, dev))
+        args = []
+        for gi, devs in enumerate(groups):
+            sl = slice(gi * Wg, (gi + 1) * Wg)
+            n = len(windows[sl])
+            if n:                      # padding windows: any valid band
+                m_t0[sl][n:] = m_t0[sl][n - 1]
+            Xm, Spm, Mum, _ = self._resident_half(1, Mp, gi)
+            args.append((Xm, Spm, Mum, _to_device(m_t0[sl], devs[0]),
+                         _to_device(m_mask[sl], devs[0])))
         return self._kernel_fn("ld", Mp, fetch), args, Mp
+
+    def _ld_batch(self, windows, fetch: str):
+        """(fn, args, Mp) of the one resident LD launch over ``windows``
+        on an engine without a mesh (see _ld_batches)."""
+        fn, args, Mp = self._ld_batches(windows, fetch)
+        if len(args) != 1:
+            raise ValueError(f"{len(args)} window groups: _ld_batches")
+        return fn, args[0], Mp
 
     def _ld_dicts(self, windows, fetch: str) -> List[Dict]:
         """computeLD output dicts of ``windows``: one resident LD launch
@@ -841,12 +989,9 @@ class PreparedRun:
             return []
         # host spans (torch.profiler; profile_regions.py reads them)
         with record_function("ld.batch"):
-            fn, args, Mp = self._ld_batch(windows, fetch)
+            fn, args, Mp = self._ld_batches(windows, fetch)
         with record_function("ld.device"):     # launch, copy, wait
-            out, ready = _copy_to_host(fn(*args))
-            if ready is not None:
-                ready.synchronize()
-        raw_all = out.numpy()
+            raw_all = _fetch_all([_copy_to_host(fn(*a)) for a in args])
         with record_function("ld.unpack"):
             cormats = []
             for m_rows, raw in zip(windows, raw_all):
@@ -928,10 +1073,8 @@ class PreparedRun:
             return pd.DataFrame()
         with record_function("qcat.device"):   # launch, copy, wait
             fn = self._kernel_fn("qcat", b.Mp, b.Up)
-            out, ready = _copy_to_host(fn(*b.arrays, *b.inputs))
-            if ready is not None:
-                ready.synchronize()
-        raw = out.numpy()
+            raw = _fetch_all([_copy_to_host(fn(*g.arrays, *g.inputs))
+                              for g in b.groups])
         Mp, Up = b.Mp, b.Up
         t_m, chi_m = raw[:, :Mp], raw[:, Mp:2 * Mp]
         t_u, chi_u = raw[:, 2 * Mp:2 * Mp + Up], raw[:, 2 * Mp + Up:-1]
@@ -991,29 +1134,38 @@ def _copy_to_host(out: torch.Tensor):
     return host, ready
 
 
+def _fetch_all(copies, axis: int = 0) -> np.ndarray:
+    """Wait for each (host tensor, ready event) of _copy_to_host, one per
+    window group, and join their arrays along ``axis`` in group order."""
+    arrays = []
+    for host, ready in copies:
+        if ready is not None:
+            ready.synchronize()
+        arrays.append(host.numpy())
+    return arrays[0] if len(arrays) == 1 else np.concatenate(arrays, axis)
+
+
 class RegionHandle:
     """In-flight region imputation (see impute_region_async): the host
-    copy of the compacted [2, N] output (complete once ``ready`` fires;
-    None on the CPU) and the precomputed assembly skeleton.  .result()
-    waits for this region alone and assembles the frame."""
+    copies of the compacted [2, N] output, one per window group (complete
+    once its event fires; no event on the CPU), and the precomputed
+    assembly skeleton.  .result() waits for this region alone, on every
+    window group's lead device, and assembles the frame."""
 
-    __slots__ = ("_out", "_ready", "_asm", "_frame")
+    __slots__ = ("_outs", "_asm", "_frame")
 
-    def __init__(self, out, ready, asm):
-        self._out = out
-        self._ready = ready
+    def __init__(self, outs, asm):
+        self._outs = outs
         self._asm = asm
         self._frame = None
 
     def result(self) -> pd.DataFrame:
         if self._frame is None:
-            if self._out is None:
+            if not self._outs:
                 self._frame = pd.DataFrame()
             else:
-                if self._ready is not None:
-                    self._ready.synchronize()
-                zi = self._out.numpy()
-                self._out = self._ready = None
+                zi = _fetch_all(self._outs, axis=1)
+                self._outs = None
                 asm = self._asm
                 out_z = asm["base_z"].copy()
                 out_info = asm["base_info"].copy()
@@ -1050,24 +1202,35 @@ class PreparedGenes:
     subj_cols: np.ndarray
     pop_sizes: Tuple[int, ...]
     wgts: Optional[Tuple[float, ...]]
-    _G_dev: Optional[torch.Tensor] = None
+    _G_dev: Optional[object] = None
+    _local_sizes: Optional[Tuple[int, ...]] = None
 
-    def _device_panel(self) -> torch.Tensor:
+    def _device_panel(self):
         """The selected populations' int8 panel on the engine's device,
         uploaded once: unpadded population segments (the gene statistics
         slice them by segment_bounds(pop_sizes)), then zero columns up to
-        a multiple of 16, the row width K2 takes on a card."""
+        a multiple of 16, the row width K2 takes on a card.  With a mesh,
+        one tuple of subject-shard panels per window group instead: shard
+        j's slice of every population (subject_shard_layout, local widths
+        in _local_sizes), then zero columns up to a multiple of 16, on
+        device [i, j]."""
         if self._G_dev is None:
             G = self.engine.store.G
             cols = self.subj_cols
             S = len(cols)
-            Gh = np.zeros((G.shape[0], _round_up(max(S, 1), 16)),
-                          dtype=np.int8)
             # one population or all of them: a column range, no copy
             span = S and np.array_equal(cols, np.arange(cols[0],
                                                         cols[0] + S))
-            Gh[:, :S] = G[:, cols[0]:cols[0] + S] if span else G[:, cols]
-            self._G_dev = torch.from_numpy(Gh).to(self.engine.device)
+            Gs = G[:, cols[0]:cols[0] + S] if span else G[:, cols]
+            mesh = self.engine.mesh
+            if mesh is not None:
+                blocks, self._local_sizes, _ = shard_columns(
+                    Gs, self.pop_sizes, mesh.shape["subject"], multiple=1)
+                self._G_dev = place_shards([_pad_cols(b, 16) for b in blocks],
+                                           mesh)
+            else:
+                self._G_dev = torch.from_numpy(_pad_cols(Gs, 16)).to(
+                    self.engine.device)
         return self._G_dev
 
     def _gene_inputs(self, gsel: np.ndarray):
@@ -1098,9 +1261,11 @@ class PreparedGenes:
         if len(gsel) == 0:
             return empty_gene_frame()
         idx, Ws, zs = self._gene_inputs(gsel)
+        panel = self._device_panel()     # sets _local_sizes with a mesh
         stats6 = genekernels.gene_stats_resident(
-            self._device_panel(), idx, Ws, zs, self.pop_sizes, self.wgts,
-            lam=self.engine.settings.lambda_)
+            panel, idx, Ws, zs, self.pop_sizes, self.wgts,
+            lam=self.engine.settings.lambda_,
+            local_pop_sizes=self._local_sizes)
         return run_gene_tests_stats(
             self.zs, self.rsids, self.gids, [self.spans[i] for i in gsel],
             stats6, self.cp_rows, self.engine.settings)

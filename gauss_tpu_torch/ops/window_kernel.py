@@ -32,6 +32,15 @@ as one segment whose fold factor is exactly 1.0f.
 Masking: padded subject columns are zero and add exactly 0.  Masked
 measured rows get identity rows/cols in B11 (plus the ridge) and zero
 Z1 entries; masked unmeasured rows produce values the compaction drops.
+
+Subject shards (``parallel/mesh.py``): every statistic is a sum over
+subjects, so the panel may be split into column shards, each holding an
+equal slice of every population (``subject_shard_layout``).  The
+preparation sums the shards' exact int32 per-(row, population) sums
+before it shifts, so every shard is shifted by the same global c; K1
+runs once per shard and the f32 partials of T1 are added on the first
+shard's device, in shard order; everything after T1 runs there once.
+One shard is the unsharded case, through the same code.
 """
 
 from __future__ import annotations
@@ -64,10 +73,22 @@ class WindowKernelSpec:
     min_abs_eig: float = 1e-5          # as gauss_tpu's spec; no resident
                                        # kernel reads it (ridge, no clip)
     eig_cutoff: float = 0.01           # CountPC threshold (qcat num_eig)
+    # per subject shard, its valid columns per population: the first ones
+    # of each of its segments (divisibility padding lands in the tail
+    # shards, parallel/mesh.subject_valid_counts).  None: one shard whose
+    # segments start with pop_sizes valid columns.  With shards,
+    # pop_sizes stay the TRUE global counts (c, alpha, beta use them) and
+    # pop_sizes_padded are each shard's local segment widths.
+    shard_valid: Optional[Tuple[Tuple[int, ...], ...]] = None
 
     @property
     def bounds(self) -> np.ndarray:
         return stats.segment_bounds(self.pop_sizes_padded)
+
+    @property
+    def valid_counts(self) -> Tuple[Tuple[int, ...], ...]:
+        """Valid columns per population, one tuple per subject shard."""
+        return self.shard_valid or (tuple(self.pop_sizes),)
 
 
 @contextlib.contextmanager
@@ -147,6 +168,100 @@ def _pop_consts(pop_sizes, wgts, dev):
                          device=dev))
 
 
+def _local_sums(G_dev: torch.Tensor, rows: torch.Tensor,
+                n_rows: Optional[int], spec: WindowKernelSpec,
+                valid: Sequence[int]):
+    """Preparation, step 1, on one subject shard: gather its panel rows
+    (K2), then the exact int32 per-(row, population) sums S and Q over
+    its valid columns.  Returns (X int8 [RN, S_loc], segs [(first column,
+    valid count)] per population, S, Q int32 [RN, P])."""
+    if n_rows is not None:
+        rows = rows.clone()
+        rows[n_rows:] = -1
+    X = gather_rows(G_dev, rows)                       # [RN, S] int8
+    RN, S = X.shape
+    dev = X.device
+    bounds = spec.bounds
+    P = len(spec.pop_sizes)
+    segs = [(int(bounds[k]), int(valid[k])) for k in range(P)]
+
+    # per-segment sums over the valid columns, in row chunks
+    Ssum = torch.empty((RN, P), dtype=torch.int32, device=dev)
+    Q = torch.empty((RN, P), dtype=torch.int32, device=dev)
+    step = _row_chunk(S)
+    for r0 in range(0, RN, step):
+        blk = X[r0:r0 + step]
+        for k, (lo, m) in enumerate(segs):
+            seg = blk[:, lo:lo + m]
+            Ssum[r0:r0 + step, k] = seg.sum(dim=1, dtype=torch.int32)
+            Q[r0:r0 + step, k] = (seg * seg).sum(dim=1, dtype=torch.int32)
+    return X, segs, Ssum, Q
+
+
+def prepare_sharded_panel(G_shards: Sequence[torch.Tensor],
+                          rows: Sequence[torch.Tensor],
+                          n_rows: Optional[int], spec: WindowKernelSpec):
+    """prepare_resident_panel over subject shards: shard j's panel
+    G_shards[j] and row ids rows[j] on its own device, with
+    spec.valid_counts[j] valid columns per population.
+
+    1. each shard gathers its rows (K2) and sums them (_local_sums);
+    2. the int32 sums are added over the shards on the first shard's
+       device, in shard order (exact);
+    3. c = round(S / m) and Sp, Mu, V from the global sums, as below;
+       every shard's valid columns are shifted by the same c, so its
+       padding columns stay exactly zero.
+
+    Returns (Xs, Sp, Mu, V): Xs one shifted int8 tensor per shard on its
+    device, the statistics on the first shard's device."""
+    if not (len(G_shards) == len(rows) == len(spec.valid_counts)):
+        raise ValueError(f"{len(G_shards)} panels, {len(rows)} row vectors "
+                         f"and {len(spec.valid_counts)} shards of valid "
+                         f"counts")
+    parts = [_local_sums(G, r, n_rows, spec, valid)
+             for G, r, valid in zip(G_shards, rows, spec.valid_counts)]
+    Xs = tuple(p[0] for p in parts)
+    Ssum, Q = parts[0][2], parts[0][3]
+    dev = Ssum.device
+    for _, _, S_j, Q_j in parts[1:]:
+        Ssum = Ssum + S_j.to(dev)
+        Q = Q + Q_j.to(dev)
+
+    if spec.wgts is None:
+        n_i = int(sum(spec.pop_sizes))
+        nf = float(n_i)
+        Ssum = Ssum.sum(dim=1, keepdim=True)
+        Q = Q.sum(dim=1, keepdim=True)
+        c = torch.clamp(torch.round(Ssum.to(torch.float32) / nf), 0, 2
+                        ).to(torch.int32)                  # [RN, 1]
+        Sp = (Ssum - n_i * c).to(torch.float32)
+        c8 = c.to(torch.int8)
+        for X, segs, _, _ in parts:  # in place: shift the valid columns
+            c8_j = c8.to(X.device)
+            for lo, m in segs:
+                X[:, lo:lo + m].sub_(c8_j)
+        Mu = Ssum.to(torch.float32) / nf
+        # shifted Q' = Q - 2c*S + n*c^2 (exact); V = Q' - S'^2/n
+        Qp = Q - 2 * c * Ssum + (n_i * c) * c
+        V = (Qp.to(torch.float32) - Sp * (Sp * (1.0 / nf)))[:, 0]
+        return Xs, Sp, Mu, V
+
+    m_i32, mf, alpha = _pop_consts(spec.pop_sizes, spec.wgts, dev)
+    c = torch.clamp(torch.round(Ssum.to(torch.float32) / mf), 0, 2
+                    ).to(torch.int32)
+    Sp = (Ssum - m_i32 * c).to(torch.float32)
+    c8 = c.to(torch.int8)
+    for X, segs, _, _ in parts:      # in place: shift the valid columns
+        c8_j = c8.to(X.device)
+        for k, (lo, m) in enumerate(segs):
+            X[:, lo:lo + m].sub_(c8_j[:, k:k + 1])
+    Mu = Ssum.to(torch.float32) / mf
+    d = m_i32 * Q - Ssum * Ssum                            # exact int32
+    with full_f32_matmul():
+        V = d.to(torch.float32) @ alpha
+    return Xs, Sp, Mu, V
+
+
 def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
                            n_rows: Optional[int], spec: WindowKernelSpec):
     """Gather panel rows (K2), then shift them and take per-row statistics.
@@ -162,56 +277,8 @@ def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
     and sum_k alpha_k (m_k Q_k - S_k^2) per row.  Every integer
     intermediate is exact int32.  Pooled mode (spec.wgts is None) uses
     one group: Sp/Mu are [RN, 1] and V is the centered sum of squares
-    Q' - S'^2/n."""
-    if n_rows is not None:
-        rows = rows.clone()
-        rows[n_rows:] = -1
-    X = gather_rows(G_dev, rows)                       # [RN, S] int8
-    RN, S = X.shape
-    dev = X.device
-    bounds = spec.bounds
-    P = len(spec.pop_sizes)
-    segs = [(int(bounds[k]), int(spec.pop_sizes[k])) for k in range(P)]
-
-    # per-segment sums over the valid columns, in row chunks
-    Ssum = torch.empty((RN, P), dtype=torch.int32, device=dev)
-    Q = torch.empty((RN, P), dtype=torch.int32, device=dev)
-    step = _row_chunk(S)
-    for r0 in range(0, RN, step):
-        blk = X[r0:r0 + step]
-        for k, (lo, m) in enumerate(segs):
-            seg = blk[:, lo:lo + m]
-            Ssum[r0:r0 + step, k] = seg.sum(dim=1, dtype=torch.int32)
-            Q[r0:r0 + step, k] = (seg * seg).sum(dim=1, dtype=torch.int32)
-
-    if spec.wgts is None:
-        n_i = int(sum(spec.pop_sizes))
-        nf = float(n_i)
-        Ssum = Ssum.sum(dim=1, keepdim=True)
-        Q = Q.sum(dim=1, keepdim=True)
-        c = torch.clamp(torch.round(Ssum.to(torch.float32) / nf), 0, 2
-                        ).to(torch.int32)                  # [RN, 1]
-        Sp = (Ssum - n_i * c).to(torch.float32)
-        c8 = c.to(torch.int8)
-        for lo, m in segs:           # in place: shift the valid columns
-            X[:, lo:lo + m].sub_(c8)
-        Mu = Ssum.to(torch.float32) / nf
-        # shifted Q' = Q - 2c*S + n*c^2 (exact); V = Q' - S'^2/n
-        Qp = Q - 2 * c * Ssum + (n_i * c) * c
-        V = (Qp.to(torch.float32) - Sp * (Sp * (1.0 / nf)))[:, 0]
-        return X, Sp, Mu, V
-
-    m_i32, mf, alpha = _pop_consts(spec.pop_sizes, spec.wgts, dev)
-    c = torch.clamp(torch.round(Ssum.to(torch.float32) / mf), 0, 2
-                    ).to(torch.int32)
-    Sp = (Ssum - m_i32 * c).to(torch.float32)
-    c8 = c.to(torch.int8)
-    for k, (lo, m) in enumerate(segs):   # in place: shift the valid columns
-        X[:, lo:lo + m].sub_(c8[:, k:k + 1])
-    Mu = Ssum.to(torch.float32) / mf
-    d = m_i32 * Q - Ssum * Ssum                            # exact int32
-    with full_f32_matmul():
-        V = d.to(torch.float32) @ alpha
+    Q' - S'^2/n.  The one-shard case of prepare_sharded_panel."""
+    (X,), Sp, Mu, V = prepare_sharded_panel((G_dev,), (rows,), n_rows, spec)
     return X, Sp, Mu, V
 
 
@@ -232,7 +299,10 @@ class _ResidentBlocks:
       Vu      [RU]   f32   sum_k alpha_k (m_k Q_k - S_k^2) per row
 
     Window w is the band Xm[m_t0[w] : m_t0[w] + Mp] (and Xu's at
-    u_t0[w]); the masks mark its real rows.  ``mm`` gives the measured
+    u_t0[w]); the masks mark its real rows.  Xm and Xu may instead be
+    tuples of subject shards (prepare_sharded_panel's), each on its own
+    device: T1 is then the sum of one K1 launch per shard, on the
+    statistics' device (``_t1``).  ``mm`` gives the measured
     block alone (one K1 launch, the LD kernel's whole Gram); calling the
     object gives (B11 [W, Mp, Mp], B21 [W, Up, Mp]) float32 with two K1
     launches and B11's diagonal at 1 + lambda.  Reference cost anchor:
@@ -256,12 +326,27 @@ class _ResidentBlocks:
                 w64.astype(np.float32)))
         return self._consts[dev]
 
+    def _t1(self, X, Y, x0, y0, nx: int, ny: int, sym: bool = False):
+        """K1's T1 of the bands; with shards (tuples X, Y), one launch per
+        shard on the shard's device with the global fold factors and the
+        local segment widths, the f32 partials added on x0's device in
+        shard order -- one f32 reduction, as gauss_tpu's single psum."""
+        if isinstance(X, torch.Tensor):
+            return gram.weighted_gram_t1(X, Y, *self.segs, x0, y0, nx, ny,
+                                         sym=sym)
+        out = None
+        for Xj, Yj in zip(X, Y):
+            d = Xj.device
+            t = gram.weighted_gram_t1(Xj, Yj, *self.segs, x0.to(d),
+                                      y0.to(d), nx, ny, sym=sym)
+            out = t if out is None else out + t.to(x0.device)
+        return out
+
     def mm(self, Xm, Spm, Mum, m_t0, m_mask, diag: float):
         """(B11 [W, Mp, Mp], parts): masked rows/cols zero, the diagonal
         set to ``diag``; ``parts`` feed the um block."""
         Mp = self.Mp
-        t1_mm = gram.weighted_gram_t1(Xm, Xm, *self.segs, m_t0, m_t0, Mp, Mp,
-                                      sym=True)
+        t1_mm = self._t1(Xm, Xm, m_t0, m_t0, Mp, Mp, sym=True)
         sxm = _slice_rows(Spm, m_t0, Mp)                 # [W, Mp, P]
         mu_m = mi_m = None
         if self.pooled:
@@ -277,7 +362,7 @@ class _ResidentBlocks:
             cov_mm = (big_mm + _bmm_t(mu_m * w, mu_m)) \
                 - mi_m[:, :, None] * mi_m[:, None, :]
         var_m = torch.diagonal(cov_mm, dim1=1, dim2=2)
-        one = torch.ones((), dtype=torch.float32, device=Xm.device)
+        one = torch.ones((), dtype=torch.float32, device=Spm.device)
         std_m = torch.sqrt(torch.where(m_mask > 0, var_m, one))
         B11 = cov_mm / (std_m[:, :, None] * std_m[:, None, :])
         B11 = B11 * (m_mask[:, :, None] * m_mask[:, None, :])
@@ -289,7 +374,7 @@ class _ResidentBlocks:
         Mp, Up = self.Mp, self.Up
         B11, (sxm, mu_m, mi_m, std_m) = self.mm(
             Xm, Spm, Mum, m_t0, m_mask, 1.0 + self.spec.lam)
-        t1_um = gram.weighted_gram_t1(Xu, Xm, *self.segs, u_t0, m_t0, Up, Mp)
+        t1_um = self._t1(Xu, Xm, u_t0, m_t0, Up, Mp)
         sxu = _slice_rows(Spu, u_t0, Up)
         vu_big = _slice_rows(Vu, u_t0, Up)               # [W, Up]
         if self.pooled:
@@ -303,7 +388,7 @@ class _ResidentBlocks:
             cov_um = (big_um + _bmm_t(mu_u * w, mu_m)) \
                 - mi_u[:, :, None] * mi_m[:, None, :]
             var_u = (vu_big + (mu_u * mu_u) @ w) - mi_u * mi_u
-        one = torch.ones((), dtype=torch.float32, device=Xm.device)
+        one = torch.ones((), dtype=torch.float32, device=Spm.device)
         std_u = torch.sqrt(torch.where(u_mask > 0, var_u, one))
         B21 = cov_um / (std_u[:, :, None] * std_m[:, None, :])
         B21 = B21 * (u_mask[:, :, None] * m_mask[:, None, :])

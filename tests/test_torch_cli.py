@@ -1,7 +1,8 @@
 """gauss_tpu_torch's command line against gauss_tpu's.
 
-Both ``main(argv)`` run on the same files (the cases of tests/test_cli.py
-that need no mesh) and their TSV / npz outputs are compared.  The
+Both ``main(argv)`` run on the same files (the cases of tests/test_cli.py)
+and their TSV / npz outputs are compared; the port's --mesh runs on a
+repeated CPU against its own unsharded runs.  The
 per-call subcommands are float64 host paths in both packages: rtol 1e-10.
 The genome-scale ones (impute-region --device-linalg, qcat-region,
 impute-genome) are f32 device paths: the port runs them with ``--device
@@ -451,26 +452,99 @@ def test_cli_genome_all_failed_exits_nonzero(synpanel, gwas_input, region,
     assert not out.exists()
 
 
+def test_cli_impute_region_mesh(synpanel, gwas_input, region, tmp_path):
+    """impute-region --mesh 2x4 (a repeated CPU) against the unsharded
+    --device-linalg output, at gauss_tpu's own bar for the same pair
+    (tests/test_cli.py: z rtol 2e-5 / atol 2e-5)."""
+    path, _ = gwas_input
+    lo, hi = region
+    pops = synpanel.desc.pops
+    wgt = _wgt_file(tmp_path, pops, [1.0 / len(pops)] * len(pops))
+    base = ["impute-region", "--chr", "22", "--start-bp", str(lo),
+            "--end-bp", str(hi), "--pop-wgt-file", wgt,
+            "--input-file", path, "--window-bp", str((hi - lo) // 3 + 1),
+            "--wing-size", str((hi - lo) // 3)] + _ref_argv(synpanel) + CPU
+    out_m, out_1 = tmp_path / "mesh.tsv", tmp_path / "one.tsv"
+    t_cli.main(base + ["--mesh", "2x4", "-o", str(out_m)])
+    t_cli.main(base + ["--device-linalg", "-o", str(out_1)])
+    df_m, df_1 = _tsv(tmp_path, "mesh.tsv"), _tsv(tmp_path, "one.tsv")
+    assert len(df_m) == len(df_1) > 0
+    assert list(df_m["rsid"]) == list(df_1["rsid"])
+    for col in ("z", "info"):
+        np.testing.assert_allclose(df_m[col], df_1[col], rtol=2e-5,
+                                   atol=2e-5)
+    # --mesh 1x1: the unsharded output, bit for bit
+    t_cli.main(base + ["--mesh", "1x1", "-o", str(out_m)])
+    assert out_m.read_text() == out_1.read_text()
+
+
+def test_cli_impute_genome_mesh(synpanel, gwas_input, region, tmp_path):
+    """impute-genome --mesh 2x4 against the unsharded run over the same
+    chunks (gauss_tpu's runner bar on a mesh: z rtol 2e-5 / atol 2e-5)."""
+    path, _ = gwas_input
+    lo, hi = region
+    wgt = _wgt_file(tmp_path, ["AAA", "BBB"], [0.5, 0.5])
+    window = (hi - lo) // 4 + 1
+    base = ["impute-genome", "--chr", "22", "--start-bp", str(lo),
+            "--end-bp", str(hi), "--pop-wgt-file", wgt, "--input-file", path,
+            "--window-bp", str(window), "--wing-size", str(window),
+            "--chunk-bp", str(2 * window)] + _ref_argv(synpanel) + CPU
+    t_cli.main(base + ["--mesh", "2x4", "--run-dir", str(tmp_path / "rm"),
+                       "-o", str(tmp_path / "mesh.tsv")])
+    t_cli.main(base + ["--run-dir", str(tmp_path / "r1"),
+                       "-o", str(tmp_path / "one.tsv")])
+    df_m, df_1 = _tsv(tmp_path, "mesh.tsv"), _tsv(tmp_path, "one.tsv")
+    assert len(df_m) == len(df_1) > 0
+    assert list(df_m["rsid"]) == list(df_1["rsid"])
+    for col in ("z", "info"):
+        np.testing.assert_allclose(df_m[col], df_1[col], rtol=2e-5,
+                                   atol=2e-5)
+    man = json.loads((tmp_path / "rm" / "manifest.json").read_text())
+    assert [c["status"] for c in man["chunks"]] == ["done", "done"]
+
+
+def test_cli_zmix_mesh(synpanel, gwas_input, tmp_path):
+    """zmix --mesh 2x4 over a panel cache: the unsharded run's weights,
+    exactly (tests/test_cli.py's case)."""
+    path, _ = gwas_input
+    cache = tmp_path / "cache"
+    t_cli.main(["panel-cache"] + _ref_argv(synpanel) + ["-o", str(cache)])
+    base = ["zmix", "--input-file", path, "--percentile", "0.5",
+            "--interval", "2"] + _ref_argv(synpanel)
+    t_cli.main(base + ["-o", str(tmp_path / "z1.tsv")])
+    t_cli.main(base + ["--panel-cache", str(cache), "--mesh", "2x4"] + CPU
+               + ["-o", str(tmp_path / "zm.tsv")])
+    df_1, df_m = _tsv(tmp_path, "z1.tsv"), _tsv(tmp_path, "zm.tsv")
+    assert list(df_m["Population"]) == list(df_1["Population"])
+    np.testing.assert_allclose(df_m["Weight"], df_1["Weight"], rtol=0,
+                               atol=0)
+
+
 @pytest.mark.parametrize("cmd,flag", [
-    ("impute-region", ["--mesh", "2x4"]), ("impute-genome", ["--mesh", "2x4"]),
-    ("impute-genome", ["--multihost"]), ("zmix", ["--mesh", "2x4"])])
-def test_cli_rejects_mesh_options(cmd, flag, synpanel, gwas_input, region,
-                                  tmp_path, capsys):
-    """--mesh / --multihost are not in the port's parser: argparse refuses
-    them (exit 2) and nothing runs; gauss_tpu's parser knows them."""
+    ("zmix", ["--mesh", "2x4"]), ("zmix", ["--mesh", "2x4x1"]),
+    ("impute-region", ["--mesh", "2by4"]), ("impute-genome", ["--mesh", "x"])],
+    ids=["zmix-no-cache", "zmix-malformed", "region-malformed",
+         "genome-malformed"])
+def test_cli_refuses_bad_mesh_options(cmd, flag, synpanel, gwas_input,
+                                      region, tmp_path):
+    """zmix --mesh without --panel-cache, and a malformed --mesh: both
+    CLIs exit with gauss_tpu's message and write nothing (the port's
+    checks come before any device is asked for)."""
     path, _ = gwas_input
     lo, hi = region
     argv = [cmd, "--input-file", path] + _ref_argv(synpanel)
     if cmd != "zmix":
         argv += ["--chr", "22", "--start-bp", str(lo), "--end-bp", str(hi),
-                 "--pop-wgt-file", "w.tsv"]
+                 "--pop-wgt-file", _wgt_file(tmp_path, ["AAA"], [1.0])]
     if cmd == "impute-genome":
         argv += ["--run-dir", str(tmp_path / "rd")]
-    with pytest.raises(SystemExit) as ei:
-        t_cli.main(argv + flag + ["-o", str(tmp_path / "o.tsv")])
-    assert ei.value.code == 2
-    assert "unrecognized arguments" in capsys.readouterr().err
-    assert not (tmp_path / "rd").exists() and not (tmp_path / "o.tsv").exists()
+    msgs = []
+    for main in (t_cli.main, j_cli.main):
+        with pytest.raises(SystemExit) as ei:
+            main(argv + flag + ["-o", str(tmp_path / "o.tsv")])
+        msgs.append(str(ei.value.code))
+    assert msgs[0] == msgs[1] and msgs[0].startswith("ERROR: ")
+    assert not (tmp_path / "o.tsv").exists()
 
 
 def test_cli_device_default_is_cuda(synpanel, gwas_input, region, tmp_path):

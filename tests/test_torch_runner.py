@@ -1,10 +1,11 @@
 """gauss_tpu_torch's checkpointed genome runner against gauss_tpu's.
 
 Same panel, input and chunking through both packages' ``GenomeRunner``
-(the cases of tests/test_runner.py that need no mesh): the JAX side as
-its own resident tests run it on the CPU (``region_mode="resident"``,
-interpret-mode Pallas, ``snp_bucket=64``), the port on ``device="cpu"``
-through the kernels' plain versions.
+(the cases of tests/test_runner.py): the JAX side as its own resident
+tests run it on the CPU (``region_mode="resident"``, interpret-mode
+Pallas, ``snp_bucket=64``; its mesh cases on the conftest's 8 virtual
+devices), the port on ``device="cpu"`` through the kernels' plain
+versions, its mesh cases on a repeated CPU.
 
 Compared: chunk keys, statuses, ``n_rows``, ``n_imputed`` and errors of
 every ledger entry (every field but ``elapsed`` and ``updated``, which
@@ -372,6 +373,59 @@ def test_jepeg_analysis_runner(tmp_path, setup):
             np.testing.assert_array_equal(a, b)
     np.testing.assert_allclose(got["chisq"], direct["chisq"], rtol=0,
                                atol=0)
+
+
+def _mesh_runner(setup, run_dir, shape=(2, 4), **kw):
+    from gauss_tpu_torch.parallel.mesh import make_mesh
+    n = shape[0] * shape[1]
+    eng = TEngine(setup["tstore"], mesh=make_mesh(*shape,
+                                                  devices=["cpu"] * n))
+    return _planned(TRunner(str(run_dir), eng, setup["inp"],
+                            setup["pop_wgt"], **{**KW, **kw}))
+
+
+def test_runner_on_mesh_matches_single_device(tmp_path, setup, port_run):
+    """The checkpointed run over a (2 x 4) mesh of a repeated CPU: the
+    port's one-device run (gauss_tpu's bar for its own mesh runner, z rtol
+    2e-5 / atol 2e-5) and gauss_tpu's runner on its 2x4 mesh (the f32
+    region bar)."""
+    import jax
+    r = _mesh_runner(setup, tmp_path / "mesh")
+    stats = r.run()
+    assert stats == port_run[1] and stats["failed"] == 0
+    assert _ledger(r) == _ledger(port_run[0])
+    df_m, df_1 = r.collect(), port_run[2]
+    assert len(df_m) == len(df_1) > 0
+    for col in ("z", "info"):
+        np.testing.assert_allclose(df_m[col].to_numpy(), df_1[col].to_numpy(),
+                                   rtol=2e-5, atol=2e-5)
+    if len(jax.devices()) < 8:
+        return
+    from gauss_tpu.parallel.mesh import make_mesh
+    rj = _planned(JRunner(str(tmp_path / "jmesh"), JEngine(
+        setup["jstore"], snp_bucket=64, mesh=make_mesh(2, 4)), setup["inp"],
+        setup["pop_wgt"], **KW))
+    assert rj.run() == stats
+    _assert_impute_close(df_m, rj.collect())
+
+
+def test_jepeg_runner_on_mesh(tmp_path, setup):
+    """analysis='jepeg' over a (2 x 4) mesh: the one-device run's genes
+    (exact partials over the shards, rtol 1e-12)."""
+    kw = dict(analysis="jepeg", annot_df=setup["annot"], chunk_bp=900_000)
+    rm = _mesh_runner(setup, tmp_path / "mesh", **kw)
+    r1 = _planned(_torch(setup, tmp_path / "one", **kw))
+    assert rm.run() == r1.run()
+    key = lambda df: df.sort_values("geneid").reset_index(drop=True)
+    got, ref = key(rm.collect()), key(r1.collect())
+    assert list(got.columns) == list(ref.columns) and len(got) > 0
+    for col in got.columns:
+        a, b = got[col].to_numpy(), ref[col].to_numpy()
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-12, atol=1e-300,
+                                       equal_nan=True)
+        else:
+            np.testing.assert_array_equal(a, b)
 
 
 def test_runner_rejects_bad_pop_mode(tmp_path, setup):
