@@ -36,6 +36,11 @@ Phases (each prints its evidence; any failure exits non-zero):
               first measured row); the first, middle and last windows
               against the float64 ldkernels.weighted_corr (max|dr| <=
               2e-4, plus LD_I16_MAX_ERR for i16tri; unit diagonal exact);
+              every window's float64 matrix, made on the card, bit-equal
+              to the host formula on the same correlations
+              (unpack_tri_i16 of the int16 triangle; the f32 block cast),
+              C-contiguous and not pinned; ld_region's host split
+              (windows, batch, device + copy, assembly) per mode;
               K1 there with its bound and yardstick as in phase 4.
 7. qcat    -- PreparedRun.qcat_region over the same region with impute's
               windows (its region batch rebuilt, so K2 runs too): K1 twice
@@ -200,7 +205,8 @@ from gauss_tpu_torch.io.panel import write_panel               # noqa: E402
 from gauss_tpu_torch.models import qcat                        # noqa: E402
 from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            PanelStore,
-                                           _build_corr_blocks_fn)
+                                           _build_corr_blocks_fn,
+                                           _fetch_flat)
 from gauss_tpu_torch.models.runner import GenomeRunner         # noqa: E402
 from gauss_tpu_torch.utils.timing import Tracer, device_trace  # noqa: E402
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
@@ -208,7 +214,10 @@ from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
 from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (LD_I16_MAX_ERR,  # noqa: E402
-                                               _gram_segments, win_slab)
+                                               _gram_segments,
+                                               build_resident_ld_corr,
+                                               pack_tri_i16, unpack_tri_i16,
+                                               win_slab)
 from gauss_tpu_torch.parallel.mesh import (group_width,       # noqa: E402
                                            make_mesh)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,     # noqa: E402
@@ -714,6 +723,38 @@ def host_wall(fn, reps=3):
     return statistics.median(walls)
 
 
+def same_bits(a, b):
+    """float64 arrays of one shape with NaN where NaN and the same bits
+    everywhere else."""
+    nan = np.isnan(b)
+    return (a.dtype == b.dtype == np.float64 and a.shape == b.shape
+            and np.array_equal(np.isnan(a), nan)
+            and np.array_equal(a.view(np.uint64)[~nan],
+                               b.view(np.uint64)[~nan]))
+
+
+def ld_split(run, lo, hi, fetch, reps):
+    """ld_region's host split, ms (median of ``reps``): tiling the
+    windows, building the batch, the device work and the copy of the
+    float64 matrices to the host, assembling the dicts."""
+    parts = collections.defaultdict(list)
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        windows = run._ld_windows(lo, hi, WINDOW_BP)
+        t1 = time.perf_counter()
+        fn, args, _ = run._ld_batches(windows, fetch)
+        t2 = time.perf_counter()
+        flat = _fetch_flat([fn(*a) for a in args])
+        t3 = time.perf_counter()
+        run._ld_assemble(windows, flat, fetch)
+        t4 = time.perf_counter()
+        for k, a, b in (("windows", t0, t1), ("batch", t1, t2),
+                        ("device + copy", t2, t3), ("assembly", t3, t4)):
+            parts[k].append(1e3 * (b - a))
+        del flat
+    return {k: statistics.median(v) for k, v in parts.items()}
+
+
 def phase_ld(run, lo, hi, reps=5):
     """ld_region over the main path's region on the same prepared run:
     the default "i16tri" fetch, then "f32"."""
@@ -748,17 +789,42 @@ def phase_ld(run, lo, hi, reps=5):
                                                fetch=fetch))
         kms = k1_ms(run, args[0], args[0], args[3], args[3], Mp, Mp, True,
                     reps)
+        split = ld_split(run, lo, hi, fetch, reps)
         log(f"LD {fetch}: W={W} (Wp={args[3].shape[0]}), Mp={Mp}: region "
-            f"on the card {dev_ms:.3f} ms (CUDA events, median of {reps}) "
-            f"= K1 {kms:.3f} ms + tail {dev_ms - kms:.3f} ms; ld_region "
-            f"{wall * 1e3:.1f} ms wall (median of 3) -> {W / wall:.1f} "
-            f"windows/s; {n_bytes} bytes copied to the host")
-        out[fetch] = dict(ms=dev_ms, k1_ms=kms, wall_s=wall, bytes=n_bytes)
+            f"on the card {dev_ms:.3f} ms (CUDA events, median of {reps}; "
+            f"the float64 matrices) = K1 {kms:.3f} ms + tail and expansion "
+            f"{dev_ms - kms:.3f} ms; ld_region {wall * 1e3:.1f} ms wall "
+            f"(median of 3) -> {W / wall:.1f} windows/s; {n_bytes} bytes "
+            f"copied to the host; host split (ms, median of {reps}): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        out[fetch] = dict(ms=dev_ms, k1_ms=kms, wall_s=wall, bytes=n_bytes,
+                          split_ms=split)
+
+    # every window's matrix, expanded on the card, against the host
+    # formulas it replaced (the int16 triangle unpacked, the f32 block
+    # cast) on the same correlations, bit for bit; pageable, C order
+    corr = build_resident_ld_corr(run.engine._spec(run.pop_sizes, run.wgts),
+                                  Mp)(*args[:5])
+    raw = {"i16tri": pack_tri_i16(corr).cpu().numpy(),
+           "f32": corr.cpu().numpy()}
+    del corr
+    for fetch, res in (("i16tri", tri), ("f32", f32)):
+        for i, (m_rows, d) in enumerate(zip(windows, res)):
+            M, c = len(m_rows), d["cormat"]
+            ref = (unpack_tri_i16(raw[fetch][i], Mp, M) if fetch == "i16tri"
+                   else raw[fetch][i, :M, :M].astype(np.float64))
+            if not (same_bits(c, ref) and c.flags.c_contiguous
+                    and not torch.from_numpy(c).is_pinned()):
+                raise AssertionError(f"LD {fetch} window {i}: the card's "
+                                     f"matrix is not the host formula's")
+    log(f"LD expansion on the card: all {W} windows of i16tri and f32 "
+        f"bit-equal to unpack_tri_i16 of the same int16 triangle and to "
+        f"the f32 block cast; every cormat C-contiguous, none pinned")
 
     # K1 and K2 against their plain versions on the LD batch's own inputs:
     # the measured half, its band offsets (each window's first measured
     # row, mostly not ROW_TILE multiples) and the half's gathered row ids
-    Xm, _, _, m_t0, _ = args
+    Xm, _, _, m_t0, _, _ = args
     checks = {"weighted_gram_t1": k1_check(
         "LD mm", (Xm, Xm, *segments(run), m_t0, m_t0, Mp, Mp, True))}
     cap = run._res[("half", 1)][0]

@@ -24,6 +24,7 @@ run on the device it is given, its solves on the host.
 from __future__ import annotations
 
 import dataclasses
+import mmap
 import os
 from collections import deque
 from typing import Dict, List, Optional, Tuple
@@ -38,12 +39,11 @@ from ..core import genekernels, linalg, stats, variants
 from ..io import readers
 from ..io.panel import PanelReader, read_panel_index
 from ..ops.gram import K_CHUNK, ROW_TILE
-from ..ops.window_kernel import (LD_FETCH, WindowKernelSpec, _dequant_i16,
+from ..ops.window_kernel import (LD_FETCH, WindowKernelSpec,
                                  build_resident_ld_kernel,
                                  build_resident_qcat_kernel,
                                  build_resident_region_kernel,
-                                 full_f32_matmul, pad_pop_segments,
-                                 unpack_tri_i16, win_slab)
+                                 full_f32_matmul, pad_pop_segments, win_slab)
 from ..parallel.mesh import (group_width, place_shards, prepare_group,
                              shard_columns, sharded_spec)
 from ..utils.special import pchisq_upper, pnorm_two_sided
@@ -927,28 +927,33 @@ class PreparedRun:
     # -- LD (computeLD) over the resident measured panel ---------------------
     def _ld_windows(self, start_bp: int, end_bp: int,
                     window_bp: int) -> List[np.ndarray]:
-        """Measured-SNP row lists of consecutive LD windows (computeLD
-        tiling: wing = 0, empty windows skipped)."""
+        """Measured-SNP row lists (ascending) of consecutive LD windows
+        (computeLD tiling: wing = 0, empty windows skipped): every
+        window's bounds searched at once among the measured rows sorted
+        by bp."""
+        if end_bp < start_bp:
+            return []
+        if window_bp < 1:
+            raise ValueError(f"window_bp must be positive, got {window_bp}")
         t = self.table
-        bp = t["bp"].to_numpy()
-        typ = t["type"].to_numpy()
-        windows = []
-        pos = start_bp
-        while pos <= end_bp:
-            hi = min(pos + window_bp - 1, end_bp)
-            m_rows = np.flatnonzero((typ == 1) & (bp >= pos) & (bp <= hi))
-            if len(m_rows):
-                windows.append(m_rows)
-            pos = hi + 1
-        return windows
+        m_all = np.flatnonzero(t["type"].to_numpy() == 1)
+        bp = t["bp"].to_numpy()[m_all]
+        order = np.argsort(bp, kind="stable")
+        bp = bp[order]
+        lo = np.arange(start_bp, end_bp + 1, window_bp)
+        hi = np.minimum(lo + (window_bp - 1), end_bp)
+        a = np.searchsorted(bp, lo, side="left")
+        b = np.searchsorted(bp, hi, side="right")
+        return [np.sort(m_all[order[i:j]]) for i, j in zip(a, b) if j > i]
 
     def _ld_batches(self, windows, fetch: str):
         """(fn, [args per window group], Mp) of the resident LD launches
-        over ``windows``: fn(*args) -> a group's packed [Wg, ...] output,
-        the groups holding consecutive blocks of the windows.  Window w's
-        band is the measured shared-layout panel from its first row; Mp
-        is the largest window's row count rounded up to ROW_TILE and each
-        group's windows are padded to a slab multiple."""
+        over ``windows``: fn(*args) -> a group's flat float64 matrices
+        (build_resident_ld_kernel), the groups holding consecutive blocks
+        of the windows.  Window w's band is the measured shared-layout
+        panel from its first row; Mp is the largest window's row count
+        rounded up to ROW_TILE and each group's windows are padded to a
+        slab multiple with windows of size 0."""
         m_all = np.flatnonzero(self.table["type"].to_numpy() == 1)
         groups = self.engine._groups()
         W = len(windows)
@@ -956,6 +961,7 @@ class PreparedRun:
         Mp = _round_up(max(len(r) for r in windows), ROW_TILE)
         m_t0 = np.zeros(Wg * len(groups), dtype=np.int32)
         m_mask = np.zeros((Wg * len(groups), Mp), dtype=np.float32)
+        sizes = tuple(len(r) for r in windows) + (0,) * (len(m_t0) - W)
         for i, m_rows in enumerate(windows):
             pos = int(np.searchsorted(m_all, m_rows[0]))
             if m_all[pos + len(m_rows) - 1] != m_rows[-1]:
@@ -971,7 +977,7 @@ class PreparedRun:
                 m_t0[sl][n:] = m_t0[sl][n - 1]
             Xm, Spm, Mum, _ = self._resident_half(1, Mp, gi)
             args.append((Xm, Spm, Mum, _to_device(m_t0[sl], devs[0]),
-                         _to_device(m_mask[sl], devs[0])))
+                         _to_device(m_mask[sl], devs[0]), sizes[sl]))
         return self._kernel_fn("ld", Mp, fetch), args, Mp
 
     def _ld_batch(self, windows, fetch: str):
@@ -984,7 +990,8 @@ class PreparedRun:
 
     def _ld_dicts(self, windows, fetch: str) -> List[Dict]:
         """computeLD output dicts of ``windows``: one resident LD launch
-        and one copy of its whole output to the host."""
+        per window group, whose output is already the windows' float64
+        matrices, and one copy of them all to the host."""
         if self.wgts is None:
             # computeLD is the ancestry-WEIGHTED estimator only
             # (src/computeLD.cpp:26-166 takes pop_wgt_df; the reference
@@ -998,36 +1005,34 @@ class PreparedRun:
             return []
         # host spans (torch.profiler; profile_regions.py reads them)
         with record_function("ld.batch"):
-            fn, args, Mp = self._ld_batches(windows, fetch)
+            fn, args, _ = self._ld_batches(windows, fetch)
         with record_function("ld.device"):     # launch, copy, wait
-            raw_all = _fetch_all([_copy_to_host(fn(*a)) for a in args])
+            flat = _fetch_flat([fn(*a) for a in args])
+        return self._ld_assemble(windows, flat, fetch)
+
+    def _ld_assemble(self, windows, flat: np.ndarray,
+                     fetch: str) -> List[Dict]:
+        """The output dicts of ``windows`` from their flat float64
+        matrices (_fetch_flat's): each cormat a view of ``flat``."""
         with record_function("ld.unpack"):
-            cormats = []
-            for m_rows, raw in zip(windows, raw_all):
+            cormats, off = [], 0
+            for m_rows in windows:
                 M = len(m_rows)
-                if fetch == "i16tri":
-                    cormats.append(unpack_tri_i16(raw, Mp, M))
-                elif fetch == "i16full":
-                    cormats.append(_dequant_i16(raw[:M, :M]))
-                else:
-                    cormats.append(raw[:M, :M].astype(np.float64))
+                cormats.append(flat[off:off + M * M].reshape(M, M))
+                off += M * M
         with record_function("ld.snplists"):
-            t = self.table
-            res = []
+            # one row selection for all windows, then a slice each
+            snps = self.table.iloc[np.concatenate(windows)][
+                ["rsid", "chr", "bp", "a1", "a2", "af1mix", "z"]]
+            res, a = [], 0
             for m_rows, cormat in zip(windows, cormats):
-                tt = t.iloc[m_rows]
+                b = a + len(m_rows)
                 res.append({
-                    "snplist": pd.DataFrame({
-                        "rsid": tt["rsid"].to_numpy(),
-                        "chr": tt["chr"].to_numpy(),
-                        "bp": tt["bp"].to_numpy(),
-                        "a1": tt["a1"].to_numpy(),
-                        "a2": tt["a2"].to_numpy(),
-                        "af1mix": tt["af1mix"].to_numpy(),
-                        "z": tt["z"].to_numpy()}),
+                    "snplist": snps.iloc[a:b].reset_index(drop=True),
                     "cormat": cormat,
                     "fetch": fetch,
                 })
+                a = b
         return res
 
     def ld_window(self, start_bp: int, end_bp: int,
@@ -1039,9 +1044,12 @@ class PreparedRun:
         {"snplist": DataFrame, "cormat": float64 [n, n], "fetch": fetch},
         or None when the window has no measured SNP.
 
-        ``fetch``: "f32" (default) copies the f32 matrix; "i16tri" packed
-        int16 lower triangles, |dr| <= LD_I16_MAX_ERR; "i16full" the full
-        int16 matrix.  The dict records the mode under "fetch"."""
+        ``fetch`` names the values: "f32" (default) the f32 correlations
+        cast to float64; "i16tri" and "i16full" the same matrix on the
+        int16 grid (round(r * 32767) / 32767 of the lower triangle,
+        mirrored), |dr| <= LD_I16_MAX_ERR.  The card makes the float64
+        matrix and one copy brings it to pageable host memory, whatever
+        the mode.  The dict records the mode under "fetch"."""
         return next(iter(self._ld_dicts(
             self._ld_windows(start_bp, end_bp, end_bp - start_bp + 1),
             fetch)), None)
@@ -1051,13 +1059,16 @@ class PreparedRun:
                   fetch: str = "i16tri") -> List[Dict]:
         """ld_window over consecutive windows of ``window_bp`` (those
         without a measured SNP skipped), all in one resident LD launch
-        per slab and one copy to the host.
+        per slab: the card computes every window's final float64 matrix,
+        and one copy brings them to pageable host memory.  The windows'
+        cormats are C-contiguous views of that one host buffer (a kept
+        window keeps the buffer alive).
 
-        ``fetch`` defaults to "i16tri": packed int16 triangles, 1/8 the
-        bytes of f32 with |dr| <= LD_I16_MAX_ERR ~ 1.5e-5, below the f32
-        statistics noise at 33k subjects; every dict records the mode
-        under "fetch".  Pass fetch="f32" for the f32 matrices; the
-        per-call compute_ld stays float64."""
+        ``fetch`` defaults to "i16tri": the int16 grid of ld_window,
+        |dr| <= LD_I16_MAX_ERR ~ 1.5e-5, below the f32 statistics noise
+        at 33k subjects ("i16full" gives the same values); every dict
+        records the mode under "fetch".  Pass fetch="f32" for the f32
+        correlations; the per-call compute_ld stays float64."""
         with record_function("ld.windows"):
             windows = self._ld_windows(start_bp, end_bp, window_bp)
         return self._ld_dicts(windows, fetch)
@@ -1141,6 +1152,24 @@ def _copy_to_host(out: torch.Tensor):
     ready = torch.cuda.Event()
     ready.record(torch.cuda.current_stream(out.device))
     return host, ready
+
+
+def _fetch_flat(outs) -> np.ndarray:
+    """One pageable float64 host array of the window groups' flat
+    outputs, in group order: each copied straight from its device (never
+    through pinned memory, which a caller who keeps the results would
+    hold in torch's pinned host cache).  The array is a fresh anonymous
+    mapping whose pages the kernel faults in at once (MAP_POPULATE), not
+    one trap per page during the copy (profile_regions.py times both)."""
+    n = sum(o.numel() for o in outs)
+    host = np.frombuffer(mmap.mmap(-1, 8 * n, flags=mmap.MAP_PRIVATE
+                                   | mmap.MAP_ANONYMOUS | mmap.MAP_POPULATE),
+                         dtype=np.float64)
+    off = 0
+    for o in outs:
+        torch.from_numpy(host[off:off + o.numel()]).copy_(o)
+        off += o.numel()
+    return host
 
 
 def _fetch_all(copies, axis: int = 0) -> np.ndarray:

@@ -4,10 +4,11 @@ A region's windows run as one batch over row bands of resident shifted
 panels: K1 Grams (``ops/gram.py``; one per slab for LD, two for
 imputation and qcat), the CalWgtCov tail in plain torch, then per
 window a Cholesky factorization and one triangular solve (imputation,
-qcat) or an int16 packing (LD).  The float64 host paths
-(``models/genome.PreparedRun.impute_window``, ``models/dist``,
-``models/ld``, ``models/qcat``) are the parity anchors; these kernels
-run in float32 and agree with them to f32 noise.
+qcat) or the expansion to its final float64 matrix (LD).  The float64
+host paths (``models/genome.PreparedRun.impute_window``,
+``models/dist``, ``models/ld``, ``models/qcat``) are the parity
+anchors; these kernels run in float32 and agree with them to f32
+noise.
 
 Numerical formulation
 ---------------------
@@ -460,8 +461,9 @@ LD_I16_MAX_ERR = 0.502 / LD_I16_SCALE
 #: NaN-propagation contract for zero-variance SNPs (README deviations)
 #: survives quantized fetches
 LD_I16_NAN = -32768
-#: LD output forms: full f32 matrices, packed int16 lower triangles, or
-#: full int16 matrices
+#: LD value forms (``fetch``): the f32 correlations, or their int16 grid
+#: ("i16tri" and "i16full" give the same values; gauss_tpu fetches them
+#: as packed int16 lower triangles and as full int16 matrices)
 LD_FETCH = ("f32", "i16tri", "i16full")
 
 
@@ -507,35 +509,101 @@ def unpack_tri_i16(tri: np.ndarray, Mp: int, M: int) -> np.ndarray:
     return out
 
 
-def build_resident_ld_kernel(spec: WindowKernelSpec, Mp: int,
-                             fetch: str = "i16tri"):
-    """Resident computeLD over a batch of windows (src/computeLD.cpp:
-    104-116: weighted correlations of each window's measured SNPs, unit
-    diagonal, no ridge, masked rows and columns zero).
-
-    fn(Xm, Spm, Mum, m_t0 [W], m_mask [W, Mp]) -> [W, Mp, Mp] f32
-    ("f32"), [W, Mp*(Mp+1)//2] int16 ("i16tri", pack_tri_i16) or
-    [W, Mp, Mp] int16 ("i16full"): the measured half of the impute
-    blocks (_ResidentBlocks.mm), one K1 launch (sym) per slab of windows.  Window w's band
-    starts at its first measured row, so its matrix is the leading block
-    of its output.  W must be a multiple of win_slab(W)."""
+def _ld_corr_fn(spec: WindowKernelSpec, Mp: int):
+    """fn(Xm, Spm, Mum, m_t0, m_mask) -> [B, Mp, Mp] f32 correlations of
+    one slab of windows (src/computeLD.cpp:104-116: weighted
+    correlations of each window's measured SNPs, unit diagonal, no
+    ridge, masked rows and columns zero): the measured half of the
+    impute blocks (_ResidentBlocks.mm), one K1 launch (sym).  Window w's
+    band starts at its first measured row, so its matrix is the leading
+    block of its output."""
     if spec.wgts is None:
         raise ValueError("resident LD requires population weights")
-    if fetch not in LD_FETCH:
-        raise ValueError(f"fetch must be one of {LD_FETCH}, got {fetch!r}")
     blocks = _ResidentBlocks(spec, Mp)
-    # i16full quantizes the mirrored lower triangle: the f32 block is
-    # symmetric only to an ulp ((s alpha) s^T rounds (i, j) and (j, i)
-    # apart), and an entry on a rounding boundary would quantize apart
-    pack = {"f32": lambda c: c, "i16tri": pack_tri_i16,
-            "i16full": lambda c: _quant_i16(gram.mirror_lower(c))}[fetch]
+    return lambda Xm, Spm, Mum, m_t0, m_mask: blocks.mm(
+        Xm, Spm, Mum, m_t0, m_mask, 1.0)[0]
+
+
+def build_resident_ld_corr(spec: WindowKernelSpec, Mp: int):
+    """Resident computeLD's f32 correlations over a batch of windows:
+    fn(Xm, Spm, Mum, m_t0 [W], m_mask [W, Mp]) -> [W, Mp, Mp] f32, one
+    K1 launch per slab (_ld_corr_fn).  W must be a multiple of
+    win_slab(W)."""
+    corr = _ld_corr_fn(spec, Mp)
 
     def fn(Xm, Spm, Mum, m_t0, m_mask):
-        def step(sl):
-            corr, _ = blocks.mm(Xm, Spm, Mum, m_t0[sl], m_mask[sl], 1.0)
-            return pack(corr)
         with full_f32_matmul():
-            return _by_slab(m_t0.shape[0], step)
+            return _by_slab(m_t0.shape[0], lambda sl: corr(
+                Xm, Spm, Mum, m_t0[sl], m_mask[sl]))
+
+    return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _dequant_table(dev: torch.device) -> torch.Tensor:
+    """_dequant_i16 of every int16 value q, at q + 32768, on ``dev``: the
+    host's float64 division by 32767, which torch does not reproduce on
+    a card (there it divides by a host scalar as a product with its
+    reciprocal, an ulp off for 896 of the 65,536 values)."""
+    q = np.arange(-32768, 32768).astype(np.int16)
+    return torch.from_numpy(_dequant_i16(q)).to(dev)
+
+
+def expand_ld(corr: torch.Tensor, sizes, fetch: str) -> torch.Tensor:
+    """The final float64 LD matrices of windows, on corr's device.
+
+    corr [W, Mp, Mp] f32 holds window w's correlations in its leading
+    sizes[w] x sizes[w] block.  Returns one flat float64 tensor with
+    each window's M x M matrix in row-major order, window after window;
+    a window of size 0 (padding) takes no room.  The values are the
+    host formulas': "f32" the f32 block cast, as astype(np.float64);
+    "i16tri" and "i16full" the int16 grid of the mirrored lower triangle
+    (_quant_i16) dequantized, as unpack_tri_i16(pack_tri_i16(corr)) and
+    _dequant_i16 give them: |dr| <= LD_I16_MAX_ERR from the f32 value,
+    symmetric, the diagonal exactly 1.0 and LD_I16_NAN -> NaN."""
+    if fetch not in LD_FETCH:
+        raise ValueError(f"fetch must be one of {LD_FETCH}, got {fetch!r}")
+    W, Mp = corr.shape[0], corr.shape[-1]
+    if len(sizes) != W or not all(0 <= M <= Mp for M in sizes):
+        raise ValueError(f"sizes {list(sizes)} do not fit {W} windows of "
+                         f"{Mp} rows")
+    f32 = fetch == "f32"
+    # the i16 grid quantizes the mirrored lower triangle: the f32 block is
+    # symmetric only to an ulp ((s alpha) s^T rounds (i, j) and (j, i)
+    # apart), and an entry on a rounding boundary would quantize apart
+    src = corr if f32 else _quant_i16(gram.mirror_lower(corr))
+    flat = torch.empty(sum(M * M for M in sizes),
+                       dtype=torch.float64 if f32 else torch.int16,
+                       device=corr.device)
+    off = 0
+    for w, M in enumerate(sizes):
+        flat[off:off + M * M].view(M, M).copy_(src[w, :M, :M])
+        off += M * M
+    if f32:
+        return flat
+    return _dequant_table(flat.device).index_select(
+        0, flat.to(torch.int32) + 32768)
+
+
+def build_resident_ld_kernel(spec: WindowKernelSpec, Mp: int,
+                             fetch: str = "i16tri"):
+    """Resident computeLD over a batch of windows, to the final float64
+    matrices on the device.
+
+    fn(Xm, Spm, Mum, m_t0 [W], m_mask [W, Mp], sizes [W]) -> flat
+    float64 [sum(sizes[w]**2)]: each slab's correlations
+    (_ld_corr_fn, one K1 launch) through expand_ld in ``fetch``'s
+    values, window w's matrix (sizes[w] = its measured row count, 0 for
+    a padding window) row-major after those of the windows before it.
+    W must be a multiple of win_slab(W)."""
+    if fetch not in LD_FETCH:
+        raise ValueError(f"fetch must be one of {LD_FETCH}, got {fetch!r}")
+    corr = _ld_corr_fn(spec, Mp)
+
+    def fn(Xm, Spm, Mum, m_t0, m_mask, sizes):
+        with full_f32_matmul():
+            return _by_slab(m_t0.shape[0], lambda sl: expand_ld(
+                corr(Xm, Spm, Mum, m_t0[sl], m_mask[sl]), sizes[sl], fetch))
 
     return fn
 

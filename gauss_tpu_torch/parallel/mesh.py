@@ -35,7 +35,7 @@ import torch
 
 from ..core import stats
 from ..ops.gram import K_CHUNK, ROW_TILE
-from ..ops.window_kernel import (WindowKernelSpec, build_resident_ld_kernel,
+from ..ops.window_kernel import (WindowKernelSpec, build_resident_ld_corr,
                                  build_resident_qcat_kernel,
                                  build_resident_region_kernel,
                                  full_f32_matmul, pack_tri_i16,
@@ -266,7 +266,7 @@ def _pad2(a, Wg: int, n: int) -> np.ndarray:
     return out
 
 
-def _window_groups(kind: str, spec, mesh: Mesh, fetch: str = "f32"):
+def _window_groups(kind: str, spec, mesh: Mesh):
     """(G_layout, m_idx, u_idx, Z1, m_mask, u_mask) -> one output per
     window group: the W windows split into contiguous groups (W must
     divide by the window axis), each run as aligned bands of the resident
@@ -287,7 +287,7 @@ def _window_groups(kind: str, spec, mesh: Mesh, fetch: str = "f32"):
             else 0
         build = {"impute": build_resident_region_kernel,
                  "qcat": build_resident_qcat_kernel}
-        fn = (build_resident_ld_kernel(sspec, Mp, fetch="f32") if kind == "ld"
+        fn = (build_resident_ld_corr(sspec, Mp) if kind == "ld"
               else build[kind](sspec, Mp, Up))
         outs = []
         for i, devs in enumerate(mesh.groups()):

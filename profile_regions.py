@@ -12,6 +12,14 @@ C calls, each ending in a synchronize, after one warm-up call:
 - the entry points ld_region ("i16tri", "f32"), qcat_region,
   impute_region, and impute_regions over 4 passes with 2 in flight.
 
+Then it times the copy of the LD kernel's float64 output to the host
+in turns, per fetch mode: straight into a fresh mapping pre-faulted by
+the kernel (MAP_POPULATE: the engine's _fetch_flat), straight into a
+fresh np.empty array (one page fault per page during the copy),
+through pinned staging (_copy_to_host) and a host copy into a fresh
+pageable array, and straight into one pageable array reused across
+calls (no fresh pages: the rest is what fresh pages cost).
+
 Per path it prints the wall per call under the profiler (host clock),
 the device time per call (the CUDA kernels and copies the profiler
 recorded), the busy share (device / wall) and the largest kernels.  For
@@ -28,6 +36,7 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
@@ -36,7 +45,8 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from chip_smoke import (CACHE, MEASURED_FRAC, WINDOW_BP,      # noqa: E402
                         WING_BP, phase_build, phase_device)
-from gauss_tpu_torch.models.genome import GenomeEngine        # noqa: E402
+from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
+                                           _copy_to_host, _fetch_flat)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,    # noqa: E402
                                              make_bench_input)
 
@@ -96,6 +106,52 @@ def report(label, res, n_kernels):
     return lines
 
 
+def ld_copies(ld, calls):
+    """Per LD fetch mode, ms per copy of the kernel's float64 output to
+    the host (median of ``calls`` rounds, the variants in turns, their
+    order reversed every other round), and the bytes copied."""
+    lines = []
+    for fetch, (fn, args, _) in ld.items():
+        out = fn(*args)
+        torch.cuda.synchronize()
+        reused = np.ones(out.numel())
+
+        def staged():
+            host, ready = _copy_to_host(out)
+            ready.synchronize()
+            return host.numpy().copy()
+
+        def fresh():
+            host = np.empty(out.numel())
+            torch.from_numpy(host).copy_(out)
+            return host
+
+        variants = {
+            "pre-faulted pageable (_fetch_flat, MAP_POPULATE)":
+                lambda: _fetch_flat([out]),
+            "fresh pageable (np.empty)": fresh,
+            "pinned staging + host copy": staged,
+            "reused pageable array": lambda: torch.from_numpy(
+                reused).copy_(out),
+        }
+        for f in variants.values():
+            f()
+        walls = {k: [] for k in variants}
+        for r in range(calls):
+            for k in (list(variants) if r % 2 == 0
+                      else list(variants)[::-1]):
+                t = time.perf_counter()
+                variants[k]()
+                walls[k].append(1e3 * (time.perf_counter() - t))
+        lines.append(f"== LD {fetch} copy to the host, "
+                     f"{out.numel() * out.element_size()} B, ms (median of "
+                     f"{calls}, in turns): " + ", ".join(
+                         f"{k} {statistics.median(v):.3f}"
+                         for k, v in walls.items()))
+        del out
+    return lines
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--snps", type=int, default=64_000,
@@ -146,6 +202,9 @@ def main():
         res = profiled(fn, args.calls)
         print("\n".join(report(label, res, 6)), flush=True)
         full += report(label, res, 15)
+    copies = ld_copies(ld, max(args.calls, 10))
+    print("\n".join(copies), flush=True)
+    full += copies
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)

@@ -10,6 +10,11 @@ Tolerances:
   rtol = atol = 2e-4, the JAX suite's bound for f32 device LD against
   the host path.
 * the int16 quantization and the unpacker: bit-equal, NaN where NaN.
+* the expansion on the device (window_kernel.expand_ld), ld_region and
+  ld_window against the host formulas they replaced (unpack_tri_i16,
+  _dequant_i16, the f32 cast) on the same correlations: bit-equal, NaN
+  where NaN; the one-pass window tiling against the per-window loop:
+  equal.
 * a CUDA card against the CPU's plain versions: 5e-5 in f32 (K1's f32
   fold vs the plain float64 sum, and the tail's f32 rounding order)."""
 
@@ -157,6 +162,157 @@ def test_quantization_and_unpack_match_jax():
         np.asarray(jwk.pack_tri_i16(jnp.asarray(Ab))))
 
 
+def _same_bits(got, ref):
+    """float64 arrays of one shape with NaN where NaN and the same bits
+    everywhere else."""
+    assert got.dtype == ref.dtype == np.float64
+    assert got.shape == ref.shape
+    nan = np.isnan(ref)
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.uint64)[~nan],
+                                  ref.view(np.uint64)[~nan])
+
+
+def _host_formula(corr, Mp, sizes, fetch):
+    """The windows' matrices as the host made them from the kernel's raw
+    output before the expansion moved to the device: one int16 triangle
+    per window unpacked, the mirrored int16 matrix dequantized, or the
+    f32 block cast."""
+    if fetch == "i16tri":
+        raw = twk.pack_tri_i16(corr).numpy()
+        return [twk.unpack_tri_i16(raw[w], Mp, M)
+                for w, M in enumerate(sizes)]
+    if fetch == "i16full":
+        raw = twk._quant_i16(gram.mirror_lower(corr)).numpy()
+        return [twk._dequant_i16(raw[w, :M, :M]) for w, M in enumerate(sizes)]
+    raw = corr.numpy()
+    return [raw[w, :M, :M].astype(np.float64) for w, M in enumerate(sizes)]
+
+
+def _split(flat, sizes):
+    out, off = [], 0
+    for M in sizes:
+        out.append(flat[off:off + M * M].reshape(M, M))
+        off += M * M
+    assert off == flat.size
+    return out
+
+
+@pytest.mark.parametrize("fetch", twk.LD_FETCH)
+def test_expand_ld_matches_host_unpack(fetch):
+    """The device expansion, run on the CPU, against the host formulas,
+    one window at M in (n, 40, 1) and a batch of windows of different M
+    (one of size 0, a padding window) whose upper triangles differ from
+    their lower ones (the int16 forms read the lower triangle only)."""
+    A = _nan_matrix()
+    n = A.shape[0]
+    for M in (n, 40, 1):
+        corr = torch.from_numpy(A)[None]
+        got = twk.expand_ld(corr, (M,), fetch).numpy()
+        _same_bits(got.reshape(M, M), _host_formula(corr, n, (M,), fetch)[0])
+    rng = np.random.default_rng(8)
+    B = _nan_matrix(6)
+    iu = np.triu_indices(n, 1)
+    B[iu] = rng.uniform(-1.0, 1.0, len(iu[0])).astype(np.float32)
+    corr = torch.from_numpy(np.stack([B, A, _nan_matrix(7), B]))
+    sizes = (n, 23, 0, 1)
+    got = twk.expand_ld(corr, sizes, fetch)
+    assert got.dtype == torch.float64 and got.is_contiguous()
+    for g, r in zip(_split(got.numpy(), sizes),
+                    _host_formula(corr, n, sizes, fetch)):
+        _same_bits(g, r)
+    if fetch != "f32":          # the unpacker's values: exact unit
+        np.testing.assert_array_equal(   # diagonal, NaN rows kept
+            np.diag(_split(got.numpy(), sizes)[1]), [1.0] * 3
+            + [np.nan] + [1.0] * 19)
+    with pytest.raises(ValueError):
+        twk.expand_ld(corr, (n, 23, 0), fetch)
+    with pytest.raises(ValueError):
+        twk.expand_ld(corr, (n, 23, 0, n + 1), fetch)
+
+
+@pytest.mark.parametrize("fetch", twk.LD_FETCH)
+def test_ld_region_bits_match_host_formula(setup, fetch):
+    """ld_region and ld_window return the windows, snplist frames and
+    cormat bits that the host made from the kernel's raw output before
+    the expansion moved to the device; every cormat a C-contiguous
+    float64 matrix."""
+    run = _torch_run(setup)
+    lo, hi = setup["lo"], setup["hi"]
+    wbp = (hi - lo) // 3
+    windows = run._ld_windows(lo, hi, wbp)
+    fn, args, Mp = run._ld_batch(windows, fetch)
+    assert len(args) == 6 and args[5][:len(windows)] == tuple(
+        len(r) for r in windows)
+    corr = twk.build_resident_ld_corr(
+        run.engine._spec(run.pop_sizes, run.wgts), Mp)(*args[:5])
+    sizes = [len(r) for r in windows]
+    ref = _host_formula(corr, Mp, sizes, fetch)
+    got = run.ld_region(lo, hi, window_bp=wbp, fetch=fetch)
+    assert len(got) == len(windows) > 1
+    t = run.table
+    for d, m_rows, r in zip(got, windows, ref):
+        tt = t.iloc[m_rows]
+        pd.testing.assert_frame_equal(d["snplist"], pd.DataFrame({
+            c: tt[c].to_numpy() for c in ("rsid", "chr", "bp", "a1", "a2",
+                                          "af1mix", "z")}))
+        assert d["fetch"] == fetch
+        assert d["cormat"].flags.c_contiguous
+        _same_bits(d["cormat"], r)
+    one = run.ld_window(lo, lo + wbp - 1, fetch=fetch)
+    assert one["cormat"].flags.c_contiguous
+    pd.testing.assert_frame_equal(one["snplist"], got[0]["snplist"])
+    w1 = run._ld_windows(lo, lo + wbp - 1, wbp)
+    _, a1, Mp1 = run._ld_batch(w1, fetch)
+    c1 = twk.build_resident_ld_corr(
+        run.engine._spec(run.pop_sizes, run.wgts), Mp1)(*a1[:5])
+    _same_bits(one["cormat"], _host_formula(c1, Mp1, [len(w1[0])],
+                                            fetch)[0])
+
+
+def _ld_windows_loop(run, start_bp, end_bp, window_bp):
+    """The per-window tiling that the one-pass search replaced."""
+    bp = run.table["bp"].to_numpy()
+    typ = run.table["type"].to_numpy()
+    windows = []
+    pos = start_bp
+    while pos <= end_bp:
+        hi = min(pos + window_bp - 1, end_bp)
+        m_rows = np.flatnonzero((typ == 1) & (bp >= pos) & (bp <= hi))
+        if len(m_rows):
+            windows.append(m_rows)
+        pos = hi + 1
+    return windows
+
+
+def test_ld_windows_one_pass_matches_loop(setup):
+    run = _torch_run(setup)
+    lo, hi = setup["lo"], setup["hi"]
+    bp_m = run.table["bp"].to_numpy()[run.table["type"].to_numpy() == 1]
+    gap = int(np.diff(bp_m).max())
+    spans = [
+        (lo, hi, (hi - lo) // 3),          # end_bp inside the last window
+        (lo, hi, (hi - lo) // 4 + 1),
+        (lo - 5_000, hi + 5_000, gap // 2),  # empty windows skipped
+        (lo, hi, 1),                       # one-SNP windows
+        (int(bp_m[7]), int(bp_m[7]), 1),   # a one-bp span on one SNP
+        (int(bp_m[7]), int(bp_m[9]) - 1, 10_000_000),
+        (int(bp_m[7]) + 1, int(bp_m[8]) - 1, 100),   # no measured SNP
+        (hi + 1, hi + 1_000, 100),
+        (hi, lo, 1_000),                   # end before start
+    ]
+    for a, b, w in spans:
+        got = run._ld_windows(a, b, w)
+        ref = _ld_windows_loop(run, a, b, w)
+        assert len(got) == len(ref), (a, b, w)
+        for x, y in zip(got, ref):
+            assert x.dtype == y.dtype
+            np.testing.assert_array_equal(x, y)
+    assert [len(r) for r in run._ld_windows(lo, hi, 1)] == [1] * len(bp_m)
+    with pytest.raises(ValueError):
+        run._ld_windows(lo, hi, 0)
+
+
 def test_ld_edge_cases(setup):
     lo, hi = setup["lo"], setup["hi"]
     run = _torch_run(setup)
@@ -191,3 +347,32 @@ def test_ld_region_on_gpu_matches_cpu(setup, fetch, tol):
                                                 fetch=fetch)
     assert gram.launches >= 1 and gather.launches >= 1
     _assert_ld_close(got, ref, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fetch", twk.LD_FETCH)
+def test_ld_region_on_gpu_expands_as_cpu(setup, fetch):
+    """On the card, the device expansion of the card's own correlations
+    gives the host formulas' bits (ld_region against
+    build_resident_ld_corr's output through _host_formula, and against
+    expand_ld on the CPU of those same correlations), and no returned
+    cormat lies in pinned memory."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    lo, hi = setup["lo"], setup["hi"]
+    wbp = (hi - lo) // 3
+    run = _torch_run(setup, "cuda:0")
+    windows = run._ld_windows(lo, hi, wbp)
+    _, args, Mp = run._ld_batch(windows, fetch)
+    corr = twk.build_resident_ld_corr(
+        run.engine._spec(run.pop_sizes, run.wgts), Mp)(*args[:5]).cpu()
+    sizes = [len(r) for r in windows]
+    ref = _host_formula(corr, Mp, sizes, fetch)
+    cpu = _split(twk.expand_ld(corr, sizes, fetch).numpy(), sizes)
+    got = run.ld_region(lo, hi, window_bp=wbp, fetch=fetch)
+    assert len(got) == len(windows)
+    for d, r, c in zip(got, ref, cpu):
+        assert d["cormat"].flags.c_contiguous
+        assert not torch.from_numpy(d["cormat"]).is_pinned()
+        _same_bits(d["cormat"], r)
+        _same_bits(d["cormat"], c)
