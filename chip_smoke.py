@@ -7,22 +7,33 @@ them.
 Phases (each prints its evidence; any failure exits non-zero):
 
 1. device  -- needs torch.cuda; prints the card and its power limit.
-2. build   -- compiles the CUDA kernels (K1 gram, K2 gather) from
-              gauss_tpu_torch/csrc with nvcc for sm_90a; prints ptxas's
-              registers, spills and shared memory per kernel and K1's
-              dynamic shared memory.
+2. build   -- compiles the CUDA kernels (K1 gram, K2 gather, K3/K4, the
+              region tail's) from gauss_tpu_torch/csrc with nvcc for
+              sm_90a; prints ptxas's registers, spills and shared memory
+              per kernel and K1's dynamic shared memory.
 3. main    -- the bench workload: a 33KG-shaped panel (29 populations,
               33,153 subjects) of --snps SNPs at 1,500 SNPs/Mb, 40%
               measured, 1 Mb windows with 500 kb wings, imputed by
               GenomeEngine.prepare_mix -> impute_region (twice, blocking)
               -> impute_regions (8 passes, 2 in flight).  The kernels'
-              launch counts must rise during it.
+              launch counts must rise during it: K1 twice and each region
+              tail kernel (corr_mm, corr_um_rhs, impute_finalize) once per
+              region call.
 4. kernels -- each kernel against its plain PyTorch version on the card,
               on the main path's own region batch (K1 rel err <= 1e-6,
               K2 bit-equal), timed with CUDA events beside its bound (the
               larger of its operations over the int8 peak and its bytes
               over the HBM rate) and one PyTorch call doing the same
               work (torch._int_mm for K1, torch.index_select for K2).
+              Then the region tail's kernels on the same batch: corr_mm
+              on K1's Gram (B11 exactly symmetric; B11 and std_m within
+              TAIL_TOL of the plain version), corr_um_rhs on the kernel's
+              std_m / mi_m (the right-hand side within TAIL_TOL),
+              impute_finalize on the solve of the kernel's blocks (z and
+              info within FINAL_RTOL), each under full_f32_matmul, timed
+              beside its bound (bytes at the HBM rate or f32 operations
+              at 67 TFLOP/s) and its plain version, the torch passes it
+              replaced; no single PyTorch call computes them.
 5. parity  -- the first window against the port's float64 window path
               (its correlation blocks on the card, its solve on the
               host): max|dZ| <= 1e-4 on imputed rows, measured rows
@@ -41,12 +52,15 @@ Phases (each prints its evidence; any failure exits non-zero):
               (unpack_tri_i16 of the int16 triangle; the f32 block cast),
               C-contiguous and not pinned; ld_region's host split
               (windows, batch, device + copy, assembly) per mode;
-              K1 there with its bound and yardstick as in phase 4.
+              K1 there with its bound and yardstick as in phase 4, and
+              corr_mm (launched by every call) on the LD batch as in
+              phase 4.
 7. qcat    -- PreparedRun.qcat_region over the same region with impute's
               windows (its region batch rebuilt, so K2 runs too): K1 twice
               per slab of windows, checked against its plain version at
-              both shapes with its bound and yardstick; the first, middle
-              and last windows
+              both shapes with its bound and yardstick, corr_mm and
+              corr_um_rhs (each launched once per slab) as in phase 4;
+              the first, middle and last windows
               against the float64 host qcat (_qcat_core on
               _build_corr_blocks_fn's blocks): qcat_m equal, max|dr| <=
               1e-4 on r = t / sqrt(m - 3).
@@ -200,6 +214,7 @@ import gauss_tpu_torch as pkg                                  # noqa: E402
 from gauss_tpu_torch import cli                                # noqa: E402
 from gauss_tpu_torch.config import PanelFiles                  # noqa: E402
 from gauss_tpu_torch.core import genekernels, ldkernels        # noqa: E402
+from gauss_tpu_torch.core.stats import full_f32_matmul         # noqa: E402
 from gauss_tpu_torch.io import readers                         # noqa: E402
 from gauss_tpu_torch.io.panel import write_panel               # noqa: E402
 from gauss_tpu_torch.models import qcat                        # noqa: E402
@@ -209,12 +224,14 @@ from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            _fetch_flat)
 from gauss_tpu_torch.models.runner import GenomeRunner         # noqa: E402
 from gauss_tpu_torch.utils.timing import Tracer, device_trace  # noqa: E402
-from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
+from gauss_tpu_torch.ops import (_build, gather, gram,        # noqa: E402
+                                 region_tail)
 from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
 from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (LD_I16_MAX_ERR,  # noqa: E402
                                                _gram_segments,
+                                               _ResidentBlocks,
                                                build_resident_ld_corr,
                                                pack_tri_i16, unpack_tri_i16,
                                                win_slab)
@@ -271,9 +288,29 @@ SHORT_MS = 0.2           # calls shorter than this are also timed on the
 PROFILE_MARGINS = (0.02, 0.2, 1.0)   # seconds of idle capture window kept
                          # on both sides of a device_ms profile's calls,
                          # per attempt
-# published peaks of one H100 SXM (dense int8 tensor-core rate, HBM3 rate)
+TAIL_TOL = 1e-5          # the region tail's blocks (B11, [B21^T | Z1]),
+                         # kernel against plain version on the same T1: f32
+                         # sums of the same products in another order
+FINAL_RTOL = 1e-5        # z and info, kernel against plain version on the
+                         # same solve output: f32 sums over the Mp rows in
+                         # another order, relative to max(1, |value|)
+# published peaks of one H100 SXM (dense int8 tensor-core rate, f32 outside
+# the tensor cores, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
+FP32_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+#: the region tail's kernels and the reference code they replace (XLA at
+#: Precision.HIGHEST on the TPU; no Pallas kernel)
+TAIL_KERNELS = {
+    "corr_mm": "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:980 "
+               "(_resident_block_builder, XLA at Precision.HIGHEST)",
+    "corr_um_rhs": "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:"
+                   "980 (_resident_block_builder, XLA at Precision.HIGHEST; "
+                   "the [B21^T | Z1] concatenation at :1286)",
+    "impute_finalize": "no Pallas counterpart: gauss_tpu/ops/window_kernel."
+                       "py:1261 (build_resident_region_kernel's tail, z2 and "
+                       "info, XLA at Precision.HIGHEST)",
+}
 
 
 def log(msg):
@@ -283,13 +320,24 @@ def log(msg):
 def reset_counts():
     gram.launches = 0
     gather.launches = 0
-    for k in p7.launches:
-        p7.launches[k] = 0
+    for counts in (p7.launches, region_tail.launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def read_counts():
     return {"weighted_gram_t1": gram.launches,
-            "gather_rows": gather.launches, **p7.launches}
+            "gather_rows": gather.launches, **p7.launches,
+            **region_tail.launches}
+
+
+def tail_launched(counts, what, per_call):
+    """Fail unless each region-tail kernel in ``per_call`` ({name: least
+    launches}) ran at least that often."""
+    short = {k: counts[k] for k, n in per_call.items() if counts[k] < n}
+    if short:
+        raise AssertionError(f"{what}: region tail kernels launched too "
+                             f"rarely: {short}, want {per_call}")
 
 
 def cuda_ms(fn, reps):
@@ -468,6 +516,8 @@ def phase_main(dev, n_snps):
         raise AssertionError("K1 was not launched twice per region")
     if launches["gather_rows"] < 2:
         raise AssertionError("K2 was not launched for the prepared batch")
+    tail_launched(launches, "the main path", dict.fromkeys(
+        region_tail.launches, n_regions))
 
     batch = run._region_batch(lo, hi, WINDOW_BP, WING_BP)
     Wp, Mp, Up = batch.inputs[2].shape[0], batch.Mp, batch.Up
@@ -604,6 +654,126 @@ def k2_check(label, G, rows, reps=5, device_too=True):
                 bound_by=b_by, library_ms=lib, **dev)
 
 
+def f32_bound(flops, n_bytes):
+    """(ms, "operations" or "bytes"): the larger of ``flops`` at the f32
+    peak outside the tensor cores and n_bytes at the HBM rate."""
+    ops_ms = flops / FP32_FLOPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                               "bytes")
+
+
+def tail_check(label, kernel, plain, args, err, tol, n_bytes, flops,
+               reps=5):
+    """One region-tail kernel against its plain version (the torch passes
+    it replaced) on one launch's arguments, both under full_f32_matmul as
+    the resident kernels call them; ``err(got, ref)`` is the compared
+    error, held to ``tol``.  Then both are timed (CUDA events) beside the
+    kernel's bound.  No single PyTorch call computes these functions:
+    library_ms is None."""
+    with full_f32_matmul():
+        got, ref = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        e = err(got, ref)
+        del got, ref
+        ms = cuda_ms(lambda: kernel(*args), reps)
+        pms = cuda_ms(lambda: plain(*args), reps)
+    b_ms, b_by = f32_bound(flops, n_bytes)
+    log(f"{label}: max err {e:.3e} (tol {tol:g}); kernel {ms:.3f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP f32) = {b_ms / ms:.1%} of bound; the "
+        f"torch passes it replaced (plain) {pms:.3f} ms")
+    if not e <= tol:
+        raise AssertionError(f"{label} disagrees with its plain version: "
+                             f"{e:.3e}")
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=e, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None)
+
+
+def _max_diff(a, b):
+    return float((a - b).abs().max())
+
+
+def _mm_err(got, ref):
+    """B11's largest difference, infinite unless the kernel's block is
+    exactly symmetric."""
+    B11 = got[0]
+    if not torch.equal(B11, B11.transpose(1, 2)):
+        return float("inf")
+    return max(_max_diff(B11, ref[0]), _max_diff(got[1], ref[1]))
+
+
+def _final_err(got, ref):
+    """z and info's largest difference relative to max(1, |value|); NaN
+    where the other is NaN (failed windows, padded columns' 0 / 0)."""
+    nan = torch.isnan(ref)
+    if not torch.equal(torch.isnan(got), nan):
+        return float("inf")
+    d = (got - ref).abs() / ref.abs().clamp(min=1.0)
+    return float(d[~nan].max())
+
+
+def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
+    """The region tail's kernels against their plain versions on one
+    path's own batch, its first slab: K1's Grams (the kernel), then
+    corr_mm and, for impute and qcat, corr_um_rhs on the kernel's std_m /
+    mi_m; for impute impute_finalize on the solve of the kernel's blocks.
+    ``kind``: "impute", "qcat" (arrays, inputs of the region batch) or
+    "ld" (arrays = the LD batch's Xm, Spm, Mum, m_t0, m_mask).  Bounds:
+    each input read once, each output written once; operations 2 f32
+    flops per multiply-add of the rank-P sums (and of z and info)."""
+    blocks = _ResidentBlocks(spec, Mp, Up)
+    if kind == "ld":
+        Xm, Spm, Mum, m_t0, m_mask = arrays
+    else:
+        Xm, Xu, Spm, Spu, Mum, Muu, Vu = arrays
+        m_t0, u_t0, Z1, m_mask, u_mask = inputs
+    alpha, w = blocks.weights(Spm.device)
+    P, nst = alpha.shape[0], 1 if w is None else 2
+    B = win_slab(m_t0.shape[0])
+    m0, mm = m_t0[:B], m_mask[:B]
+    diag = 1.0 if kind == "ld" else 1.0 + spec.lam
+    t1 = blocks._t1(Xm, Xm, m0, m0, Mp, Mp, sym=True)
+    lower = B * Mp * (Mp + 1) // 2
+    mm_args = (t1, Spm, Mum, m0, mm, alpha, w, diag)
+    checks = {"corr_mm": tail_check(
+        f"{label} corr_mm (B={B}, Mp={Mp}, P={P}; B11 exactly symmetric, "
+        f"B11 and std_m against the plain version)",
+        region_tail.corr_mm, region_tail.corr_mm_plain, mm_args, _mm_err,
+        TAIL_TOL, 4 * (lower + B * Mp * Mp + nst * B * Mp * P + B * Mp
+                       + nst * B * Mp), 2 * nst * P * lower)}
+    if kind == "ld":
+        return checks
+    with full_f32_matmul():
+        B11, std_m, mi_m = region_tail.corr_mm(*mm_args)
+    del t1
+    u0, um = u_t0[:B], u_mask[:B]
+    z1 = Z1[:B].to(torch.float32)
+    um_args = (blocks._t1(Xu, Xm, u0, m0, Up, Mp), Spu, Muu, Vu, u0, Spm,
+               Mum, m0, std_m, mi_m, um, mm, z1, alpha, w)
+    checks["corr_um_rhs"] = tail_check(
+        f"{label} corr_um_rhs (B={B}, Up={Up}, Mp={Mp}, P={P}; the "
+        f"right-hand side [B21^T | Z1])", region_tail.corr_um_rhs,
+        region_tail.corr_um_rhs_plain, um_args, _max_diff, TAIL_TOL,
+        4 * (B * Up * Mp + nst * B * Up * P + B * Up + nst * B * Mp * P
+             + (2 + nst) * B * Mp + B * Up + B * Mp * (Up + 1)),
+        2 * nst * P * B * Up * Mp)
+    if kind == "impute":
+        with full_f32_matmul():
+            rhs = region_tail.corr_um_rhs(*um_args)
+            L, bad = torch.linalg.cholesky_ex(B11)
+            Y = torch.linalg.solve_triangular(L, rhs, upper=False)
+        del um_args, rhs, L
+        checks["impute_finalize"] = tail_check(
+            f"{label} impute_finalize (B={B}, Mp={Mp}, Up={Up}; the solve's "
+            f"output, strides {tuple(Y.stride())})",
+            region_tail.impute_finalize, region_tail.impute_finalize_plain,
+            (Y, bad), _final_err, FINAL_RTOL,
+            4 * (B * Mp * (Up + 1) + 2 * B * Up + B), 4 * B * Up * Mp)
+    return checks
+
+
 def segments(run):
     """K1's (sizes, padded sizes, weights) for the run's spec."""
     return _gram_segments(run.engine._spec(run.pop_sizes, run.wgts))
@@ -625,14 +795,22 @@ def phase_kernels(engine, run, batch, region_ms):
     k1 = sum_checks([k1_check("mm", (Xm, Xm, *seg, m0, m0, Mp, Mp, True)),
                      k1_check("um", (Xu, Xm, *seg, u0, m0, Up, Mp, False))])
     k1_check("mm pooled", (Xm, Xm, *pooled, m0, m0, Mp, Mp, True))
+    spec = engine._spec(run.pop_sizes, run.wgts)
+    tail = tail_checks("impute", spec, Mp, Up, batch.arrays, batch.inputs,
+                       "impute")
+    tail_ms = sum(c["ms"] for c in tail.values())
     log(f"region {region_ms:.3f} ms = K1 {k1['ms']:.3f} ms (mm + um) + "
-        f"tail {region_ms - k1['ms']:.3f} ms")
+        f"tail {region_ms - k1['ms']:.3f} ms, of which the tail kernels "
+        f"{tail_ms:.3f} ms (" + ", ".join(f"{k} {c['ms']:.3f}"
+                                         for k, c in tail.items())
+        + f") and the solves with the rest "
+        f"{region_ms - k1['ms'] - tail_ms:.3f} ms")
 
     # K2 on the batch's own index vectors: both bands' row ids, -1
     # sentinels padding each window's band
     k2 = k2_check("impute batch", run._device_panel(),
                   np.concatenate(run._aligned_rows(batch.plans)))
-    return {"weighted_gram_t1": k1, "gather_rows": k2}
+    return {"weighted_gram_t1": k1, "gather_rows": k2, **tail}
 
 
 def batch_checks(label, run, b, reps=3):
@@ -774,6 +952,7 @@ def phase_ld(run, lo, hi, reps=5):
         raise AssertionError("K1 was not launched by every ld_region call")
     if launches["gather_rows"] < 1:
         raise AssertionError("K2 was not launched for the LD panel")
+    tail_launched(launches, "ld_region x2", {"corr_mm": 2})
     if [d["fetch"] for d in tri] != ["i16tri"] * W \
             or [d["fetch"] for d in f32] != ["f32"] * W:
         raise AssertionError("ld_region returned the wrong windows or modes")
@@ -830,6 +1009,8 @@ def phase_ld(run, lo, hi, reps=5):
     cap = run._res[("half", 1)][0]
     checks["gather_rows"] = k2_check("LD measured half", run._device_panel(),
                                      run._half_rows(1, cap))
+    checks.update(tail_checks("LD", run.engine._spec(run.pop_sizes, run.wgts),
+                              Mp, 0, args[:5], None, "ld"))
 
     # the float64 parity on the first, middle and last windows, plus the
     # first window whose band offset is not a ROW_TILE multiple if none
@@ -886,6 +1067,8 @@ def phase_qcat(engine, run, lo, hi, reps=5):
         raise AssertionError("K1 was not launched twice per slab")
     if launches["gather_rows"] < 1:
         raise AssertionError("K2 was not launched for the qcat batch")
+    tail_launched(launches, "qcat_region x2",
+                  {"corr_mm": 2 * slabs, "corr_um_rhs": 2 * slabs})
 
     fn = run._kernel_fn("qcat", b.Mp, b.Up)
     dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs), reps)
@@ -897,6 +1080,9 @@ def phase_qcat(engine, run, lo, hi, reps=5):
         k1_check("qcat um", (Xu, Xm, *seg, u0, m0, b.Up, b.Mp, False),
                  reps)])
     kms = k1["ms"]
+    checks = {"weighted_gram_t1": k1, **tail_checks(
+        "qcat", engine._spec(run.pop_sizes, run.wgts), b.Mp, b.Up, b.arrays,
+        b.inputs, "qcat")}
     wall = host_wall(lambda: run.qcat_region(lo, hi, window_bp=WINDOW_BP,
                                              wing_size=WING_BP))
     log(f"qcat region on the card {dev_ms:.3f} ms (CUDA events, median of "
@@ -950,7 +1136,7 @@ def phase_qcat(engine, run, lo, hi, reps=5):
                                  f"path")
         max_dr = max(max_dr, dr)
     return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall,
-                          max_dr=max_dr), k1, q
+                          max_dr=max_dr), checks, q
 
 class _IndexOf:
     """What make_annotation reads of a panel: its index."""
@@ -2176,7 +2362,8 @@ def main():
     del batch
     max_dz, first_host = phase_parity(run, res, lo)
     ld_launches, _, ld_checks, ld_ref = phase_ld(run, lo, hi)
-    qcat_launches, _, qcat_k1, qcat_ref = phase_qcat(engine, run, lo, hi)
+    qcat_launches, _, qcat_checks, qcat_ref = phase_qcat(engine, run, lo,
+                                                        hi)
     del run
     torch.cuda.empty_cache()
     jepeg_launches, jepeg, annot = phase_jepeg(engine)
@@ -2230,6 +2417,8 @@ def main():
                      "probes/probe7_int4.py:49"),
         "resident_rowsum": ("gauss_tpu_torch/csrc/probe7_int4.cu",
                             "probes/probe7_int4.py:71"),
+        **{k: ("gauss_tpu_torch/csrc/region_tail.cu", v)
+           for k, v in TAIL_KERNELS.items()},
     }
     # ms / plain_ms / bound_ms / library_ms of each row: the impute batch
     # (K1, K2), K1's yardstick shape (K3), int8 in clusters of 8 (K4); the
@@ -2237,13 +2426,18 @@ def main():
     checked = {
         "weighted_gram_t1": {"impute": kernels["weighted_gram_t1"],
                              "ld": ld_checks["weighted_gram_t1"],
-                             "qcat": qcat_k1},
+                             "qcat": qcat_checks["weighted_gram_t1"]},
         "gather_rows": {"impute": kernels["gather_rows"],
                         "ld": ld_checks["gather_rows"],
                         **{f"jepeg {m}": r["k2"]
                            for m, r in jepeg.items()}},
         "int4_dot": {"probe7": k3},
         "resident_rowsum": {"probe7": k4},
+        "corr_mm": {"impute": kernels["corr_mm"], "qcat":
+                    qcat_checks["corr_mm"], "ld": ld_checks["corr_mm"]},
+        "corr_um_rhs": {"impute": kernels["corr_um_rhs"],
+                        "qcat": qcat_checks["corr_um_rhs"]},
+        "impute_finalize": {"impute": kernels["impute_finalize"]},
     }
     # the later paths' own batches (runner chunks, one window, a streamed
     # chunk, the command line's regions)
@@ -2253,15 +2447,17 @@ def main():
     top = {"weighted_gram_t1": kernels["weighted_gram_t1"],
            "gather_rows": kernels["gather_rows"],
            "int4_dot": k3["K1 yardstick 55040x1280x34176"],
-           "resident_rowsum": k4["int8 cluster 8"]}
+           "resident_rowsum": k4["int8 cluster 8"],
+           **{k: kernels[k] for k in TAIL_KERNELS}}
     by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
                "jepeg": jepeg_launches, **runner_launches,
                "impute_window": window_launches, "streaming": stream_launches,
                **cli_launches, **mesh_launches, "probe7": probe_launches}
-    # the path each row's "launches" counts: the main path for K1 and K2,
-    # the probe for K3 and K4
+    # the path each row's "launches" counts: the main path for K1, K2 and
+    # the region tail's kernels, the probe for K3 and K4
     own = {"weighted_gram_t1": launches, "gather_rows": launches,
-           "int4_dot": probe_launches, "resident_rowsum": probe_launches}
+           "int4_dot": probe_launches, "resident_rowsum": probe_launches,
+           **dict.fromkeys(TAIL_KERNELS, launches)}
     extra = ("product_ms", "product_bound_ms", "pack_ms", "pack_bound_ms",
              "device_ms", "library_device_ms")
     rows = []

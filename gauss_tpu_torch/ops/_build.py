@@ -62,6 +62,24 @@ _SIGNATURES = {
     # (x, out, R, row_bytes, int4, cluster, stream)
     "gauss_resident_rowsum": [_P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, _P],
+    # region_tail: (T1, S, Mu, t0, R, mask, alpha, wts, P, B, Mp, diag,
+    #  pooled, tf32, std_out, mi_out, out, stream)
+    "gauss_region_corr_mm": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P,
+                             ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                             _P, _P, _P, _P],
+    # (T1, Su, Muu, Vu, u0, Ru, Sm, Mum, m0, Rm, std_m, mi_m, u_mask,
+    #  m_mask, z1, alpha, wts, P, B, Mp, Up, pooled, tf32, scratch, out,
+    #  stream)
+    "gauss_region_corr_um_rhs": [_P, _P, _P, _P, _P, ctypes.c_longlong, _P,
+                                 _P, _P, ctypes.c_longlong, _P, _P, _P, _P,
+                                 _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                 ctypes.c_int, _P, _P, _P],
+    # (Y, sw, su, bad, B, Mp, Up, tf32, out, stream)
+    "gauss_region_finalize": [_P, ctypes.c_longlong, ctypes.c_longlong, _P,
+                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_int, _P, _P],
 }
 
 

@@ -2,12 +2,12 @@
 
 A region's windows run as one batch over row bands of resident shifted
 panels: K1 Grams (``ops/gram.py``; one per slab for LD, two for
-imputation and qcat), the CalWgtCov tail in plain torch, then per
-window a Cholesky factorization and one triangular solve (imputation,
-qcat) or the expansion to its final float64 matrix (LD).  The float64
-host paths (``models/genome.PreparedRun.impute_window``,
-``models/dist``, ``models/ld``, ``models/qcat``) are the parity
-anchors; these kernels run in float32 and agree with them to f32
+imputation and qcat), the CalWgtCov tail (``ops/region_tail.py``'s
+kernels), then per window a Cholesky factorization and one triangular
+solve (imputation, qcat) or the expansion to its final float64 matrix
+(LD).  The float64 host paths (``models/genome.PreparedRun.
+impute_window``, ``models/dist``, ``models/ld``, ``models/qcat``) are the
+parity anchors; these kernels run in float32 and agree with them to f32
 noise.
 
 Numerical formulation
@@ -24,7 +24,8 @@ integer c = round(mean) in {0, 1, 2} once, at preparation: covariance
 is shift-invariant, m*C' - S'S'^T = m*C - SS^T holds exactly in
 integers, and both terms shrink to the size of the result.  The heavy
 term sum_k beta_k X'_k Y'_k^T is K1's exact per-segment int32 Gram; the
-rank-P correction and the mean terms are small batched matmuls.
+rank-P correction, the mean terms and the normalization are one pass of
+``ops/region_tail`` per block.
 
 Pooled mode (``spec.wgts is None``, the homogeneous dist estimator,
 CalCor src/util.cpp:49-70) is the same path with the whole subject axis
@@ -55,7 +56,7 @@ import torch
 
 from ..core import stats
 from ..core.stats import full_f32_matmul
-from . import gram
+from . import gram, region_tail
 from .gather import gather_rows
 
 #: windows per slab of the batched tail; bounds the [B, Mp, Mp] f32
@@ -264,12 +265,6 @@ def prepare_resident_panel(G_dev: torch.Tensor, rows: torch.Tensor,
     return X, Sp, Mu, V
 
 
-def _slice_rows(A: torch.Tensor, offs: torch.Tensor, n: int) -> torch.Tensor:
-    """Batched row slices A[offs[w] : offs[w] + n] -> [W, n, ...]."""
-    rows = offs.to(torch.int64)[:, None] + torch.arange(n, device=A.device)
-    return A[rows]
-
-
 class _ResidentBlocks:
     """Per-window correlation blocks from resident panels.
 
@@ -286,8 +281,10 @@ class _ResidentBlocks:
     device: T1 is then the sum of one K1 launch per shard, on the
     statistics' device (``_t1``).  ``mm`` gives the measured
     block alone (one K1 launch, the LD kernel's whole Gram); calling the
-    object gives (B11 [W, Mp, Mp], B21 [W, Up, Mp]) float32 with two K1
-    launches and B11's diagonal at 1 + lambda.  Reference cost anchor:
+    object gives (B11 [W, Mp, Mp], rhs [W, Mp, Up + 1]) float32 with two
+    K1 launches, B11's diagonal at 1 + lambda and rhs = [B21^T | Z1], the
+    triangular solve's right-hand side.  The CalWgtCov arithmetic after
+    K1 is ``ops/region_tail``'s.  Reference cost anchor:
     src/distmix.cpp:179-236."""
 
     def __init__(self, spec: WindowKernelSpec, Mp: int, Up: int = 0):
@@ -299,13 +296,20 @@ class _ResidentBlocks:
         self._consts = {}   # device -> (alpha, w), uploaded on first use
 
     def weights(self, dev):
+        """(alpha [P], w [P]) f32 on ``dev``: alpha_k = w_k m_k / (m_k - 1)
+        and the weights; pooled, ([1 / n], None)."""
         # a host->device copy synchronizes with the stream: do it once per
         # device, not on every region call (that would stall pipelining)
         if dev not in self._consts:
-            w64 = np.asarray(self.spec.wgts, dtype=np.float64)
-            self._consts[dev] = tuple(torch.from_numpy(a).to(dev) for a in (
-                (w64 * self.m / (self.m - 1.0)).astype(np.float32),
-                w64.astype(np.float32)))
+            if self.pooled:
+                self._consts[dev] = (torch.tensor(
+                    [1.0 / self.n], dtype=torch.float32).to(dev), None)
+            else:
+                w64 = np.asarray(self.spec.wgts, dtype=np.float64)
+                self._consts[dev] = tuple(
+                    torch.from_numpy(a).to(dev) for a in (
+                        (w64 * self.m / (self.m - 1.0)).astype(np.float32),
+                        w64.astype(np.float32)))
         return self._consts[dev]
 
     def _t1(self, X, Y, x0, y0, nx: int, ny: int, sym: bool = False):
@@ -325,60 +329,24 @@ class _ResidentBlocks:
         return out
 
     def mm(self, Xm, Spm, Mum, m_t0, m_mask, diag: float):
-        """(B11 [W, Mp, Mp], parts): masked rows/cols zero, the diagonal
-        set to ``diag``; ``parts`` feed the um block."""
-        Mp = self.Mp
-        t1_mm = self._t1(Xm, Xm, m_t0, m_t0, Mp, Mp, sym=True)
-        sxm = _slice_rows(Spm, m_t0, Mp)                 # [W, Mp, P]
-        mu_m = mi_m = None
-        if self.pooled:
-            # cov = sum_s x'y' - S'x S'y / n  (= sum (x-xbar)(y-ybar))
-            cov_mm = gram.mirror_lower(t1_mm) - _bmm_t(sxm * (1.0 / self.n),
-                                                       sxm)
-        else:
-            alpha, w = self.weights(Spm.device)
-            mu_m = _slice_rows(Mum, m_t0, Mp)
-            big_mm = gram.mirror_lower(t1_mm) - _bmm_t(sxm * alpha, sxm)
-            # mean-product terms + normalization (CalWgtCov tail)
-            mi_m = mu_m @ w                              # [W, Mp]
-            cov_mm = (big_mm + _bmm_t(mu_m * w, mu_m)) \
-                - mi_m[:, :, None] * mi_m[:, None, :]
-        var_m = torch.diagonal(cov_mm, dim1=1, dim2=2)
-        one = torch.ones((), dtype=torch.float32, device=Spm.device)
-        std_m = torch.sqrt(torch.where(m_mask > 0, var_m, one))
-        B11 = cov_mm / (std_m[:, :, None] * std_m[:, None, :])
-        B11 = B11 * (m_mask[:, :, None] * m_mask[:, None, :])
-        B11.diagonal(dim1=1, dim2=2).fill_(diag)
-        return B11, (sxm, mu_m, mi_m, std_m)
+        """(B11 [W, Mp, Mp], std_m, mi_m): masked rows/cols zero, the
+        diagonal set to ``diag``; std_m and mi_m feed the um block."""
+        t1_mm = self._t1(Xm, Xm, m_t0, m_t0, self.Mp, self.Mp, sym=True)
+        return region_tail.corr_mm(t1_mm, Spm, Mum, m_t0, m_mask,
+                                   *self.weights(Spm.device), diag)
 
-    def __call__(self, Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0, u_t0, m_mask,
-                 u_mask):
-        Mp, Up = self.Mp, self.Up
-        B11, (sxm, mu_m, mi_m, std_m) = self.mm(
-            Xm, Spm, Mum, m_t0, m_mask, 1.0 + self.spec.lam)
-        t1_um = self._t1(Xu, Xm, u_t0, m_t0, Up, Mp)
-        sxu = _slice_rows(Spu, u_t0, Up)
-        vu_big = _slice_rows(Vu, u_t0, Up)               # [W, Up]
-        if self.pooled:
-            cov_um = t1_um - _bmm_t(sxu * (1.0 / self.n), sxm)
-            var_u = vu_big
-        else:
-            alpha, w = self.weights(Spm.device)
-            mu_u = _slice_rows(Muu, u_t0, Up)
-            big_um = t1_um - _bmm_t(sxu * alpha, sxm)
-            mi_u = mu_u @ w
-            cov_um = (big_um + _bmm_t(mu_u * w, mu_m)) \
-                - mi_u[:, :, None] * mi_m[:, None, :]
-            var_u = (vu_big + (mu_u * mu_u) @ w) - mi_u * mi_u
-        one = torch.ones((), dtype=torch.float32, device=Spm.device)
-        std_u = torch.sqrt(torch.where(u_mask > 0, var_u, one))
-        B21 = cov_um / (std_u[:, :, None] * std_m[:, None, :])
-        B21 = B21 * (u_mask[:, :, None] * m_mask[:, None, :])
-        return B11, B21
-
-
-def _bmm_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.bmm(a, b.transpose(1, 2))
+    def __call__(self, Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0, u_t0, z1,
+                 m_mask, u_mask):
+        B11, std_m, mi_m = self.mm(Xm, Spm, Mum, m_t0, m_mask,
+                                   1.0 + self.spec.lam)
+        t1_um = self._t1(Xu, Xm, u_t0, m_t0, self.Up, self.Mp)
+        rhs = region_tail.corr_um_rhs(
+            t1_um, Spu, Muu, Vu, u_t0, Spm, Mum, m_t0, std_m, mi_m, u_mask,
+            m_mask, z1, *self.weights(Spm.device))
+        # B11 is symmetric (exactly so from the kernel): its transpose is the
+        # same matrix in the column-major layout that the library's
+        # Cholesky copies its input into, so that copy is a straight one
+        return B11.transpose(1, 2), rhs
 
 
 def _by_slab(W: int, step, dim: int = 0) -> torch.Tensor:
@@ -393,31 +361,18 @@ def _by_slab(W: int, step, dim: int = 0) -> torch.Tensor:
                      dim=dim)
 
 
-def _nan_where(failed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x with every window whose factorization failed set to NaN
-    (failed: [W] bool, x: [W, ...])."""
-    nan = torch.full((), float("nan"), dtype=x.dtype, device=x.device)
-    return torch.where(failed.reshape((-1,) + (1,) * (x.dim() - 1)), nan, x)
-
-
-def _impute_tail(B11: torch.Tensor, B21: torch.Tensor, z1: torch.Tensor):
-    """(z, info) [W, Up] from the blocks: one Cholesky and ONE triangular
-    solve on [B21^T | Z1]; info = colsum((L^-1 B21^T)^2) and
-    z = (L^-1 B21^T)^T (L^-1 Z1) / sqrt(info).
+def _impute_tail(B11: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """[2, W, Up] (z, info) from the blocks: one Cholesky and ONE
+    triangular solve on rhs = [B21^T | Z1]; info = colsum((L^-1 B21^T)^2)
+    and z = (L^-1 B21^T)^T (L^-1 Z1) / sqrt(info) (region_tail's
+    impute_finalize).
 
     cholesky_ex does not synchronize with the host (cholesky does).  A
     window whose factorization fails (info > 0) gets NaN z and info, as
     the reference device path's Cholesky returns NaN; nothing raises."""
-    Up = B21.shape[1]
     L, bad = torch.linalg.cholesky_ex(B11)
-    rhs = torch.cat([B21.transpose(1, 2), z1[:, :, None]], dim=2)
     Yall = torch.linalg.solve_triangular(L, rhs, upper=False)
-    Y, y1 = Yall[:, :, :Up], Yall[:, :, Up]
-    z2 = torch.einsum("wmu,wm->wu", Y, y1)
-    info = (Y * Y).sum(dim=1)
-    z = z2 / torch.sqrt(info)
-    failed = bad != 0
-    return _nan_where(failed, z), _nan_where(failed, info)
+    return region_tail.impute_finalize(Yall, bad)
 
 
 def build_resident_region_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
@@ -437,10 +392,9 @@ def build_resident_region_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
     def fn(Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0, u_t0, Z1, m_mask, u_mask,
            wi=None, ci=None):
         def step(sl):
-            B11, B21 = blocks(Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0[sl],
-                              u_t0[sl], m_mask[sl], u_mask[sl])
-            return torch.stack(_impute_tail(B11, B21,
-                                            Z1[sl].to(torch.float32)))
+            return _impute_tail(*blocks(
+                Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0[sl], u_t0[sl],
+                Z1[sl].to(torch.float32), m_mask[sl], u_mask[sl]))
         with full_f32_matmul():
             out = _by_slab(m_t0.shape[0], step, dim=1)   # [2, W, Up]
         if wi is not None:
@@ -568,9 +522,10 @@ def expand_ld(corr: torch.Tensor, sizes, fetch: str) -> torch.Tensor:
         raise ValueError(f"sizes {list(sizes)} do not fit {W} windows of "
                          f"{Mp} rows")
     f32 = fetch == "f32"
-    # the i16 grid quantizes the mirrored lower triangle: the f32 block is
-    # symmetric only to an ulp ((s alpha) s^T rounds (i, j) and (j, i)
-    # apart), and an entry on a rounding boundary would quantize apart
+    # the i16 grid quantizes the mirrored lower triangle: the plain
+    # version's f32 block is symmetric only to an ulp ((s alpha) s^T rounds
+    # (i, j) and (j, i) apart), and an entry on a rounding boundary would
+    # quantize apart (the kernel's block is exactly symmetric)
     src = corr if f32 else _quant_i16(gram.mirror_lower(corr))
     flat = torch.empty(sum(M * M for M in sizes),
                        dtype=torch.float64 if f32 else torch.int16,
@@ -629,22 +584,21 @@ def _masked_column_corr(Zt: torch.Tensor, X: torch.Tensor,
     return cov / torch.sqrt(torch.clamp(vz * vx, min=1e-30))
 
 
-def _qcat_tail(B11: torch.Tensor, B21: torch.Tensor, z1: torch.Tensor,
+def _qcat_tail(B11: torch.Tensor, rhs: torch.Tensor,
                m_mask: torch.Tensor) -> torch.Tensor:
     """[W, 2*Mp + 2*Up + 1]: (t_m, chisq_m, t_u, chisq_u, num_eig) of each
     window's measured and unmeasured SNPs (src/qcat.cpp:202-246).
 
-    One Cholesky B11 = L L^T and one triangular solve on [B21^T | Z1]
-    give Xu = L^-1 B21^T and Zt = L^-1 Z1; the decorrelated measured
-    columns L^-1 B11 are L^T itself.  num_eig is the measured count: the
-    reference's CountPC(B11, eig_cutoff) equals it whenever lambda >
-    eig_cutoff (every eigenvalue of R + lambda*I is >= lambda), which the
-    kernel's constructor enforces.  A window whose factorization fails gets NaN
-    tests."""
-    Up = B21.shape[1]
+    One Cholesky B11 = L L^T and one triangular solve on rhs =
+    [B21^T | Z1] give Xu = L^-1 B21^T and Zt = L^-1 Z1; the decorrelated
+    measured columns L^-1 B11 are L^T itself.  num_eig is the measured
+    count: the reference's CountPC(B11, eig_cutoff) equals it whenever
+    lambda > eig_cutoff (every eigenvalue of R + lambda*I is >= lambda),
+    which the kernel's constructor enforces.  A window whose factorization
+    fails gets NaN tests."""
+    Up = rhs.shape[2] - 1
     n = m_mask.sum(dim=1)
     L, bad = torch.linalg.cholesky_ex(B11)
-    rhs = torch.cat([B21.transpose(1, 2), z1[:, :, None]], dim=2)
     Yall = torch.linalg.solve_triangular(L, rhs, upper=False)
     Zt = Yall[:, :, Up]
     scale2 = torch.clamp(n - 3.0, min=0.0)[:, None]
@@ -652,14 +606,14 @@ def _qcat_tail(B11: torch.Tensor, B21: torch.Tensor, z1: torch.Tensor,
     for X in (L.transpose(1, 2), Yall[:, :, :Up]):
         r = _masked_column_corr(Zt, X, m_mask, n)
         tests += [torch.sqrt(scale2) * r, scale2 * r * r]
-    return torch.cat([_nan_where(bad != 0, torch.cat(tests, dim=1)),
-                      n[:, None]], dim=1)
+    tests = region_tail._nan_where(bad != 0, torch.cat(tests, dim=1))
+    return torch.cat([tests, n[:, None]], dim=1)
 
 
 def build_resident_qcat_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
     """Resident qcat / qcatmix tests over a batch of windows
     (src/qcatmix.cpp:145-286; pooled specs give qcat, src/qcat.cpp:
-    134-262): impute's (B11, B21) blocks, then _qcat_tail.
+    134-262): impute's blocks (B11, [B21^T | Z1]), then _qcat_tail.
 
     fn(Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0, u_t0, Z1, m_mask, u_mask)
     -> [W, 2*Mp + 2*Up + 1] f32, columns t_m | chisq_m | t_u | chisq_u |
@@ -673,10 +627,10 @@ def build_resident_qcat_kernel(spec: WindowKernelSpec, Mp: int, Up: int):
 
     def fn(Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0, u_t0, Z1, m_mask, u_mask):
         def step(sl):
-            B11, B21 = blocks(Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0[sl],
-                              u_t0[sl], m_mask[sl], u_mask[sl])
-            return _qcat_tail(B11, B21, Z1[sl].to(torch.float32),
-                              m_mask[sl])
+            return _qcat_tail(*blocks(
+                Xm, Xu, Spm, Spu, Mum, Muu, Vu, m_t0[sl], u_t0[sl],
+                Z1[sl].to(torch.float32), m_mask[sl], u_mask[sl]),
+                m_mask[sl])
         with full_f32_matmul():
             return _by_slab(m_t0.shape[0], step)
 

@@ -9,6 +9,10 @@ C calls, each ending in a synchronize, after one warm-up call:
 
 - the region functions alone on their cached batch: impute, qcat, LD
   "i16tri" and LD "f32" (device work only, no host assembly);
+- the library's solves alone, cholesky_ex and solve_triangular on the
+  impute batch's own blocks (B11 and [B21^T | Z1] as the region function
+  hands them over), so that the region's kernels can be told apart from
+  the library's;
 - the entry points ld_region ("i16tri", "f32"), qcat_region,
   impute_region, and impute_regions over 4 passes with 2 in flight.
 
@@ -47,6 +51,8 @@ from chip_smoke import (CACHE, MEASURED_FRAC, WINDOW_BP,      # noqa: E402
                         WING_BP, phase_build, phase_device)
 from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            _copy_to_host, _fetch_flat)
+from gauss_tpu_torch.ops.window_kernel import (                # noqa: E402
+    _ResidentBlocks, full_f32_matmul)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,    # noqa: E402
                                              make_bench_input)
 
@@ -180,8 +186,21 @@ def main():
     qc = run._kernel_fn("qcat", b.Mp, b.Up)
     windows = run._ld_windows(lo, hi, WINDOW_BP)
     ld = {f: run._ld_batch(windows, f) for f in ("i16tri", "f32")}
+    m_t0, u_t0, Z1, m_mask, u_mask = b.inputs
+    with full_f32_matmul():
+        B11, rhs = _ResidentBlocks(run.engine._spec(run.pop_sizes, run.wgts),
+                                   b.Mp, b.Up)(*b.arrays, m_t0, u_t0, Z1,
+                                               m_mask, u_mask)
+
+    def solves():
+        with full_f32_matmul():
+            L = torch.linalg.cholesky_ex(B11)[0]
+            return torch.linalg.solve_triangular(L, rhs, upper=False)
+
     paths = [
         ("impute region fn", lambda: imp(*b.arrays, *b.inputs, *b.compact)),
+        ("impute solves alone (cholesky_ex + solve_triangular on its "
+         "blocks)", solves),
         ("qcat region fn", lambda: qc(*b.arrays, *b.inputs)),
         ("LD i16tri region fn", lambda: ld["i16tri"][0](*ld["i16tri"][1])),
         ("LD f32 region fn", lambda: ld["f32"][0](*ld["f32"][1])),

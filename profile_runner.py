@@ -8,9 +8,9 @@ windows).
 
 1. stages -- why a chunk's z and info differ in their last bits from the
    same windows' rows of a whole-region call.  The resident impute
-   kernel's stages (the correlation blocks: K1, the batched rank-P
-   products and the elementwise tail; the Cholesky factorization; the
-   triangular solve; the z and info reductions) run on the whole region's
+   kernel's stages (the correlation blocks: K1 and the region tail's
+   block kernels; the Cholesky factorization; the triangular solve; the
+   z and info kernel) run on the whole region's
    batch and on a slice of n of its windows (n = 1, the runner's chunk
    width, and 9: PyTorch's triangular solve loops cuBLAS trsm up to 8
    matrices and takes the batched routine above), each stage on the SAME
@@ -51,6 +51,7 @@ from chip_smoke import (CACHE, MEASURED_FRAC, WINDOW_BP,      # noqa: E402
                         runner_maker)
 from gauss_tpu_torch.models import genome                      # noqa: E402
 from gauss_tpu_torch.models.genome import GenomeEngine        # noqa: E402
+from gauss_tpu_torch.ops.region_tail import impute_finalize   # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (                # noqa: E402
     _ResidentBlocks, full_f32_matmul)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,    # noqa: E402
@@ -59,22 +60,23 @@ from gauss_tpu_torch.utils.timing import Tracer               # noqa: E402
 
 
 def same(a, b):
-    """"bit-equal" or the largest |a - b| of two tensors."""
+    """"bit-equal" (NaN where both are NaN: a padded column's z is 0 / 0)
+    or the largest |a - b| of two tensors."""
+    if a.is_floating_point():
+        both = a.isnan() & b.isnan()
+        a, b = a.masked_fill(both, 0), b.masked_fill(both, 0)
     if torch.equal(a, b):
         return "bit-equal"
     return f"max|d| {float((a - b).abs().max()):.3e}"
 
 
-def tail_stages(B11, B21, z1):
+def tail_stages(B11, rhs):
     """The impute tail of ops/window_kernel._impute_tail, stage by stage,
     each stage's output kept."""
-    Up = B21.shape[1]
-    L = torch.linalg.cholesky_ex(B11)[0]
-    rhs = torch.cat([B21.transpose(1, 2), z1[:, :, None]], dim=2)
+    L, bad = torch.linalg.cholesky_ex(B11)
     Y = torch.linalg.solve_triangular(L, rhs, upper=False)
-    z2 = torch.einsum("wmu,wm->wu", Y[:, :, :Up], Y[:, :, Up])
-    info = (Y[:, :, :Up] * Y[:, :, :Up]).sum(dim=1)
-    return dict(L=L, rhs=rhs, Y=Y, z2=z2, info=info)
+    z, info = impute_finalize(Y, bad)
+    return dict(L=L, rhs=rhs, Y=Y, z=z, info=info)
 
 
 def phase_stages(run, lo, hi, chunk_windows):
@@ -84,33 +86,33 @@ def phase_stages(run, lo, hi, chunk_windows):
     m_t0, u_t0, Z1, m_mask, u_mask = b.inputs
     blocks = _ResidentBlocks(spec, b.Mp, b.Up)
     with full_f32_matmul():
-        B11, B21 = blocks(*b.arrays, m_t0, u_t0, m_mask, u_mask)
-        full = tail_stages(B11, B21, Z1)
+        B11, rhs = blocks(*b.arrays, m_t0, u_t0, Z1, m_mask, u_mask)
+        full = tail_stages(B11, rhs)
         for n in sorted({1, chunk_windows, 9}):
             if n >= W:
                 continue
             sl = slice(chunk_windows, chunk_windows + n) \
                 if chunk_windows + n <= W else slice(0, n)
-            cut = lambda t: t[sl].contiguous()
-            B11s, B21s = blocks(*b.arrays, m_t0[sl], u_t0[sl], m_mask[sl],
-                                u_mask[sl])
-            Up = b.Up
-            L = torch.linalg.cholesky_ex(cut(B11))[0]
-            Y = torch.linalg.solve_triangular(cut(full["L"]),
-                                              cut(full["rhs"]), upper=False)
-            Yf = cut(full["Y"])
-            z2 = torch.einsum("wmu,wm->wu", Yf[:, :, :Up], Yf[:, :, Up])
-            info = (Yf[:, :, :Up] * Yf[:, :, :Up]).sum(dim=1)
+            B11s, rhss = blocks(*b.arrays, m_t0[sl], u_t0[sl], Z1[sl],
+                                m_mask[sl], u_mask[sl])
+            # batch slices keep each stage's own layout (the solve's
+            # column-major right-hand side and output)
+            L = torch.linalg.cholesky_ex(B11[sl])[0]
+            Y = torch.linalg.solve_triangular(full["L"][sl], full["rhs"][sl],
+                                              upper=False)
+            z, info = impute_finalize(
+                full["Y"][sl], torch.zeros(n, dtype=torch.int32,
+                                           device=B11.device))
             log(f"stages, windows {sl.start}..{sl.stop - 1} as a batch of "
                 f"{n} against the same windows in the batch of "
                 f"{m_t0.shape[0]} (Mp={b.Mp}, Up={b.Up}), each stage on "
                 f"the whole batch's inputs: blocks B11 "
-                f"{same(B11s, B11[sl])}, B21 {same(B21s, B21[sl])}; "
+                f"{same(B11s, B11[sl])}, rhs {same(rhss, rhs[sl])}; "
                 f"cholesky_ex {same(L, full['L'][sl])}; solve_triangular "
-                f"{same(Y, full['Y'][sl])}; einsum z2 "
-                f"{same(z2, full['z2'][sl])}; info sum "
+                f"{same(Y, full['Y'][sl])}; impute_finalize z "
+                f"{same(z, full['z'][sl])}, info "
                 f"{same(info, full['info'][sl])}")
-            del B11s, B21s, L, Y, Yf, z2, info
+            del B11s, rhss, L, Y, z, info
 
         # the chunk's own batch: its own padded band heights
         a = b.plans[chunk_windows][0]
@@ -119,23 +121,23 @@ def phase_stages(run, lo, hi, chunk_windows):
         own = run._region_batch(a, c, WINDOW_BP, WING_BP)
         o_m_t0, o_u_t0, o_Z1, o_m_mask, o_u_mask = own.inputs
         n = len(own.plans)
-        o11, o21 = _ResidentBlocks(spec, own.Mp, own.Up)(
-            *own.arrays, o_m_t0, o_u_t0, o_m_mask, o_u_mask)
+        o11, orhs = _ResidentBlocks(spec, own.Mp, own.Up)(
+            *own.arrays, o_m_t0, o_u_t0, o_Z1, o_m_mask, o_u_mask)
         mp, up = min(b.Mp, own.Mp), min(b.Up, own.Up)
-        ot = tail_stages(o11, o21, o_Z1)
+        ot = tail_stages(o11, orhs)
         # real rows only: the padded rows of a band differ by construction
         real = own.inputs[4][:n, :up] > 0
         log(f"stages, the chunk's own batch ({n} windows, Mp={own.Mp}, "
             f"Up={own.Up}) against the same windows of the region's "
             f"(Mp={b.Mp}, Up={b.Up}), leading {mp} x {mp} / {up} x {mp} "
             f"blocks: B11 {same(o11[:n, :mp, :mp], B11[sl][:, :mp, :mp])}, "
-            f"B21 {same(o21[:n, :up, :mp], B21[sl][:, :up, :mp])}, L "
+            f"B21 {same(orhs[:n, :mp, :up], rhs[sl][:, :mp, :up])}, L "
             f"{same(ot['L'][:n, :mp, :mp], full['L'][sl][:, :mp, :mp])}; "
-            f"on the real unmeasured rows z2 "
-            f"{same(ot['z2'][:n, :up][real], full['z2'][sl][:, :up][real])}"
+            f"on the real unmeasured rows z "
+            f"{same(ot['z'][:n, :up][real], full['z'][sl][:, :up][real])}"
             f", info "
             f"{same(ot['info'][:n, :up][real], full['info'][sl][:, :up][real])}")
-    del full, B11, B21, o11, o21, ot
+    del full, B11, rhs, o11, orhs, ot
     run._res.clear()
     torch.cuda.empty_cache()
 

@@ -177,7 +177,8 @@ def test_qcat_tail_failed_window_gives_nan():
     B21 = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(
         np.float32)) * 0.1
     z1 = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32))
-    out = twk._qcat_tail(B11, B21, z1, torch.ones(2, 8))
+    rhs = torch.cat([B21.transpose(1, 2), z1[:, :, None]], dim=2)
+    out = twk._qcat_tail(B11, rhs, torch.ones(2, 8))
     assert out.shape == (2, 2 * 8 + 2 * 4 + 1)
     assert torch.isfinite(out[0]).all()
     assert torch.isnan(out[1, :-1]).all() and out[1, -1] == 8

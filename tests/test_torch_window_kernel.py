@@ -1,6 +1,8 @@
 """Resident region kernel (gauss_tpu_torch.ops.window_kernel) against
 gauss_tpu.ops.window_kernel on the same inputs, the JAX side's Pallas
-Gram in interpret mode.
+Gram in interpret mode; the region tail's kernels (ops/region_tail)
+through their plain versions against the CalWgtCov formulas in float64,
+and on the card against those plain versions.
 
 Tolerances: X_shift bit-equal (exact integer arithmetic on both sides);
 Sp/Mu/V rel 1e-6 (f32 divisions / one f32 product with alpha); B11/B21
@@ -17,6 +19,8 @@ import torch
 from gauss_tpu.models.genome import PanelStore as JStore
 from gauss_tpu.ops import pallas_gram as pg
 from gauss_tpu.ops import window_kernel as jwk
+from gauss_tpu_torch.core.stats import full_f32_matmul
+from gauss_tpu_torch.ops import _build, gram, region_tail
 from gauss_tpu_torch.ops import window_kernel as twk
 
 R = pg.ROW_TILE          # 256: the JAX kernel's row tile; also fine here
@@ -114,17 +118,22 @@ def _region_inputs(G, Gp, sizes, padded, weighted, seed=12):
 
 @pytest.mark.parametrize("weighted", [True, False])
 def test_block_builder_matches(panel, weighted):
+    """B11 and the right-hand side [B21^T | Z1] against JAX's (B11, B21)
+    and the Z1 they were given."""
     G, Gp, sizes, padded = panel
-    js, ts, j_in, t_in, (_, m_mask, u_mask) = _region_inputs(
+    js, ts, j_in, t_in, (z1, m_mask, u_mask) = _region_inputs(
         G, Gp, sizes, padded, weighted)
     a11, a21 = jwk._resident_block_builder(js, MP, UP)(
         *j_in, jnp.asarray(m_mask), jnp.asarray(u_mask))
-    b11, b21 = twk._ResidentBlocks(ts, MP, UP)(
-        *t_in, torch.from_numpy(m_mask), torch.from_numpy(u_mask))
-    assert b11.shape == (W, MP, MP) and b21.shape == (W, UP, MP)
-    assert b11.dtype == b21.dtype == torch.float32
+    b11, rhs = twk._ResidentBlocks(ts, MP, UP)(
+        *t_in, torch.from_numpy(z1), torch.from_numpy(m_mask),
+        torch.from_numpy(u_mask))
+    assert b11.shape == (W, MP, MP) and rhs.shape == (W, MP, UP + 1)
+    assert b11.dtype == rhs.dtype == torch.float32
     np.testing.assert_allclose(b11.numpy(), np.asarray(a11), atol=1e-5)
-    np.testing.assert_allclose(b21.numpy(), np.asarray(a21), atol=1e-5)
+    np.testing.assert_allclose(rhs[..., :UP].transpose(1, 2).numpy(),
+                               np.asarray(a21), atol=1e-5)
+    np.testing.assert_array_equal(rhs[..., UP].numpy(), z1)
 
 
 @pytest.mark.parametrize("weighted", [True, False])
@@ -174,6 +183,310 @@ def test_failed_cholesky_gives_nan_window():
     B21 = torch.from_numpy(rng.standard_normal((2, 4, 8)).astype(
         np.float32)) * 0.1
     z1 = torch.from_numpy(rng.standard_normal((2, 8)).astype(np.float32))
-    z, info = twk._impute_tail(B11, B21, z1)
+    rhs = torch.cat([B21.transpose(1, 2), z1[:, :, None]], dim=2)
+    z, info = twk._impute_tail(B11, rhs)
     assert torch.isfinite(z[0]).all() and torch.isfinite(info[0]).all()
     assert torch.isnan(z[1]).all() and torch.isnan(info[1]).all()
+
+
+# -- the region tail's kernels (ops/region_tail) ------------------------------
+
+def _tail_case(weighted, W=3, Mp=128, Up=64, seed=15):
+    """One slab of the tail's inputs on the CPU, from a random panel of 3
+    populations with LD between neighbouring SNPs: the resident statistics
+    (prepare_resident_panel), the band offsets, masks with padding rows in
+    every window, K1's Grams (plain version; T1_mm's strict upper triangle
+    overwritten with garbage, as sym mode leaves it), Z1, alpha and w."""
+    rng = np.random.default_rng(seed)
+    sizes, R = (40, 50, 38), 260
+    freq = rng.uniform(0.05, 0.6, (len(sizes),))
+    cols = []
+    for f, m in zip(freq, sizes):
+        x = rng.binomial(2, f, (1, m))
+        rows = [x]
+        for _ in range(R - 1):       # each SNP a noisy copy of the last
+            keep = rng.random((1, m)) < 0.7
+            x = np.where(keep, x, rng.binomial(2, f, (1, m)))
+            rows.append(x)
+        cols.append(np.concatenate(rows))
+    G = np.concatenate(cols, axis=1).astype(np.int8)
+    Gp, padded = twk.pad_pop_segments(G, sizes, multiple=pg.K_TILE)
+    spec = twk.WindowKernelSpec(pop_sizes=sizes, pop_sizes_padded=padded,
+                                wgts=(0.5, 0.3, 0.2) if weighted else None)
+    Ms, Us = (Mp - 17, Mp - 40, 9)[:W], (Up - 5, 30, Up)[:W]
+    rows_m = np.full(W * Mp, -1, np.int32)
+    rows_u = np.full(W * Up, -1, np.int32)
+    m_mask = np.zeros((W, Mp), np.float32)
+    u_mask = np.zeros((W, Up), np.float32)
+    for w in range(W):
+        rows_m[w * Mp:w * Mp + Ms[w]] = np.arange(Ms[w]) + 20 * w
+        rows_u[w * Up:w * Up + Us[w]] = rng.choice(R, Us[w], replace=False)
+        m_mask[w, :Ms[w]] = 1
+        u_mask[w, :Us[w]] = 1
+    Gt = torch.from_numpy(Gp)
+    Xm, Spm, Mum, _ = twk.prepare_resident_panel(
+        Gt, torch.from_numpy(rows_m), None, spec)
+    Xu, Spu, Muu, Vu = twk.prepare_resident_panel(
+        Gt, torch.from_numpy(rows_u), None, spec)
+    m_t0 = torch.arange(W, dtype=torch.int32) * Mp
+    u_t0 = torch.arange(W, dtype=torch.int32) * Up
+    segs = twk._gram_segments(spec)
+    t1_mm = gram.weighted_gram_t1(Xm, Xm, *segs, m_t0, m_t0, Mp, Mp,
+                                  sym=True)
+    t1_mm += torch.triu(torch.from_numpy(rng.standard_normal(
+        (W, Mp, Mp)).astype(np.float32)) * 1e3, 1)
+    t1_um = gram.weighted_gram_t1(Xu, Xm, *segs, u_t0, m_t0, Up, Mp)
+    z1 = (rng.standard_normal((W, Mp)) * 1.5 * m_mask).astype(np.float32)
+    alpha, w = twk._ResidentBlocks(spec, Mp, Up).weights(torch.device("cpu"))
+    return dict(t1_mm=t1_mm, t1_um=t1_um, Spm=Spm, Mum=Mum, Spu=Spu,
+                Muu=Muu, Vu=Vu, m_t0=m_t0, u_t0=u_t0,
+                m_mask=torch.from_numpy(m_mask),
+                u_mask=torch.from_numpy(u_mask), z1=torch.from_numpy(z1),
+                alpha=alpha, w=w, diag=1.1)
+
+
+def _tail_calls(c):
+    """B11, std_m, mi_m and the right-hand side through the wrappers."""
+    B11, std_m, mi_m = region_tail.corr_mm(
+        c["t1_mm"], c["Spm"], c["Mum"], c["m_t0"], c["m_mask"], c["alpha"],
+        c["w"], c["diag"])
+    rhs = region_tail.corr_um_rhs(
+        c["t1_um"], c["Spu"], c["Muu"], c["Vu"], c["u_t0"], c["Spm"],
+        c["Mum"], c["m_t0"], std_m, mi_m, c["u_mask"], c["m_mask"], c["z1"],
+        c["alpha"], c["w"])
+    return B11, std_m, mi_m, rhs
+
+
+def _tail_formulas(c):
+    """CalWgtCov's blocks in float64 numpy from the same f32 inputs:
+    cov = T1 - sum_k alpha_k s_k s_k' + sum_k w_k mu_k mu_k' - mi mi', std
+    from the diagonal (measured) or V + sum_k w_k mu_k^2 - mi^2
+    (unmeasured), 1 on masked rows; (B11, [B21^T | Z1])."""
+    f = lambda t: t.double().numpy()
+    Mp, Up = c["t1_mm"].shape[1], c["t1_um"].shape[1]
+    band = lambda A, t0, n: f(A)[f(t0).astype(int)[:, None] + np.arange(n)]
+    sm, su = band(c["Spm"], c["m_t0"], Mp), band(c["Spu"], c["u_t0"], Up)
+    a = f(c["alpha"])
+    T = np.tril(f(c["t1_mm"]))
+    T = T + np.tril(T, -1).transpose(0, 2, 1)
+    cmm = T - np.einsum("wip,p,wjp->wij", sm, a, sm)
+    cum = f(c["t1_um"]) - np.einsum("wip,p,wjp->wij", su, a, sm)
+    var_u = band(c["Vu"], c["u_t0"], Up)
+    if c["w"] is not None:
+        w = f(c["w"])
+        mm, mu = band(c["Mum"], c["m_t0"], Mp), band(c["Muu"], c["u_t0"], Up)
+        mim, miu = mm @ w, mu @ w
+        cmm += np.einsum("wip,p,wjp->wij", mm, w, mm) - mim[:, :, None] \
+            * mim[:, None, :]
+        cum += np.einsum("wip,p,wjp->wij", mu, w, mm) - miu[:, :, None] \
+            * mim[:, None, :]
+        var_u = var_u + (mu * mu) @ w - miu * miu
+    mk_m, mk_u = f(c["m_mask"]), f(c["u_mask"])
+    sd_m = np.sqrt(np.where(mk_m > 0, np.einsum("wii->wi", cmm), 1.0))
+    sd_u = np.sqrt(np.where(mk_u > 0, var_u, 1.0))
+    B11 = cmm / (sd_m[:, :, None] * sd_m[:, None, :]) \
+        * (mk_m[:, :, None] * mk_m[:, None, :])
+    B11[:, np.arange(Mp), np.arange(Mp)] = c["diag"]
+    B21 = cum / (sd_u[:, :, None] * sd_m[:, None, :]) \
+        * (mk_u[:, :, None] * mk_m[:, None, :])
+    return B11, np.concatenate([B21.transpose(0, 2, 1),
+                                f(c["z1"])[:, :, None]], axis=2)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_region_tail_plain_versions_match_formulas(weighted):
+    """ops/region_tail's plain versions (CPU tensors take them) against the
+    formulas in float64, masked rows included; B11 and the right-hand side
+    to 1e-5 (f32 arithmetic on correlations of a few hundred subjects),
+    masked rows and columns exactly zero, Z1 the last column."""
+    c = _tail_case(weighted)
+    B11, std_m, mi_m, rhs = _tail_calls(c)
+    ref11, ref_rhs = _tail_formulas(c)
+    W, Mp, Up = 3, 128, 64
+    assert B11.shape == (W, Mp, Mp) and rhs.shape == (W, Mp, Up + 1)
+    assert std_m.shape == (W, Mp) and (mi_m is None) == (not weighted)
+    np.testing.assert_allclose(B11.numpy(), ref11, atol=1e-5)
+    np.testing.assert_allclose(rhs.numpy(), ref_rhs, atol=1e-5)
+    pad_m, pad_u = c["m_mask"] == 0, c["u_mask"] == 0
+    off = B11 - torch.diag_embed(torch.diagonal(B11, dim1=1, dim2=2))
+    assert (off.transpose(1, 2)[pad_m] == 0).all() and (off[pad_m] == 0).all()
+    assert (rhs[..., :Up].transpose(1, 2)[pad_u] == 0).all()
+    assert (rhs[..., :Up][pad_m] == 0).all()
+    assert (torch.diagonal(B11, dim1=1, dim2=2) == c["diag"]).all()
+    assert torch.equal(rhs[..., Up], c["z1"])
+
+
+def _solved(c, B11, rhs):
+    L, bad = torch.linalg.cholesky_ex(B11)
+    return torch.linalg.solve_triangular(L, rhs, upper=False), bad
+
+
+def test_impute_finalize_plain_matches_formulas():
+    """z and info from the solve's column-major output against the
+    formulas in float64, a failed factorization NaN in its window alone;
+    an output that is not column-major in each window raises."""
+    rng = np.random.default_rng(16)
+    Y = rng.standard_normal((3, 40, 9)).astype(np.float32)
+    bad = torch.tensor([0, 3, 0], dtype=torch.int32)
+    col_major = torch.from_numpy(Y.transpose(0, 2, 1).copy()).transpose(1, 2)
+    assert col_major.stride(1) == 1
+    got = region_tail.impute_finalize(col_major, bad).numpy()
+    Yd = Y.astype(np.float64)
+    info = (Yd[:, :, :8] ** 2).sum(axis=1)
+    z = np.einsum("wmu,wm->wu", Yd[:, :, :8], Yd[:, :, 8]) / np.sqrt(info)
+    assert got.shape == (2, 3, 8)
+    for k in (0, 2):
+        np.testing.assert_allclose(got[0, k], z[k], rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(got[1, k], info[k], rtol=1e-5)
+    assert np.isnan(got[:, 1]).all()
+    with pytest.raises(ValueError, match="column-major"):
+        region_tail.impute_finalize(torch.from_numpy(Y), bad)
+
+
+@pytest.mark.parametrize("weighted", [True, False])
+def test_region_tail_failed_window_is_nan(weighted):
+    """A window whose B11 is not positive definite gets NaN z and info
+    from the tail, the others stay finite."""
+    c = _tail_case(weighted)
+    B11, _, _, rhs = _tail_calls(c)
+    B11[1, 3, 3] = -1.0
+    out = twk._impute_tail(B11, rhs)
+    assert out.shape == (2, 3, 64)
+    assert torch.isnan(out[:, 1]).all()
+    real = c["u_mask"] > 0
+    assert torch.isfinite(out[:, 0][:, real[0]]).all()
+    assert torch.isfinite(out[:, 2][:, real[2]]).all()
+
+
+def test_cuda_tensors_never_fall_back(monkeypatch):
+    """A CUDA tensor goes to the kernel library or raises; it never takes
+    the plain version (fake CUDA tensors: the library is replaced by one
+    that refuses).  Tensors on another non-CPU device raise too."""
+    fake_mode = pytest.importorskip("torch._subclasses.fake_tensor")
+    c = _tail_case(True, W=1)
+    Yall = torch.zeros((1, 65, 128)).transpose(1, 2)
+    bad = torch.zeros(1, dtype=torch.int32)
+
+    def refuse():
+        raise RuntimeError("no kernel library here")
+
+    def plain(*a, **k):
+        raise AssertionError("a CUDA tensor took the plain version")
+
+    monkeypatch.setattr(_build, "library", refuse)
+    for name in ("corr_mm_plain", "corr_um_rhs_plain",
+                 "impute_finalize_plain"):
+        monkeypatch.setattr(region_tail, name, plain)
+    try:
+        mode = fake_mode.FakeTensorMode()
+        with mode:
+            torch.empty(1, device="cuda")
+    except Exception as e:           # no fake CUDA device in this build
+        pytest.skip(f"cannot make a fake CUDA tensor here: {e}")
+
+    def calls(c, Yall, bad):
+        yield lambda: _tail_calls(c)
+        yield lambda: region_tail.corr_um_rhs(
+            c["t1_um"], c["Spu"], c["Muu"], c["Vu"], c["u_t0"], c["Spm"],
+            c["Mum"], c["m_t0"], c["m_mask"], c["m_mask"], c["u_mask"],
+            c["m_mask"], c["z1"], c["alpha"], c["w"])
+        yield lambda: region_tail.impute_finalize(Yall, bad)
+
+    def on(d):
+        new = lambda v: torch.empty_strided(v.shape, v.stride(),
+                                            dtype=v.dtype, device=d)
+        return ({k: new(v) if isinstance(v, torch.Tensor) else v
+                 for k, v in c.items()}, new(Yall), new(bad))
+
+    with mode:
+        for call in calls(*on("cuda")):
+            with pytest.raises(RuntimeError, match="no kernel library"):
+                call()
+    for call in calls(*on("meta")):
+        with pytest.raises(ValueError, match="unsupported device"):
+            call()
+
+
+def _gpu_case(weighted):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    c = _tail_case(weighted)
+    return {k: v.cuda() if isinstance(v, torch.Tensor) else v
+            for k, v in c.items()}
+
+
+def _plain_calls(c):
+    saved = {n: getattr(region_tail, n) for n in ("corr_mm", "corr_um_rhs")}
+    try:
+        region_tail.corr_mm = region_tail.corr_mm_plain
+        region_tail.corr_um_rhs = region_tail.corr_um_rhs_plain
+        return _tail_calls(c)
+    finally:
+        for n, f in saved.items():
+            setattr(region_tail, n, f)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+def test_region_tail_kernels_match_plain_on_gpu(weighted):
+    """Each kernel against its plain version on the card at W=3, Mp=128,
+    Up=64, P=3 (and pooled): B11 and the right-hand side to 1e-5, B11
+    exactly symmetric, z and info within the region bar; each launched
+    once per call."""
+    c = _gpu_case(weighted)
+    with full_f32_matmul():
+        for k in region_tail.launches:
+            region_tail.launches[k] = 0
+        B11, std_m, mi_m, rhs = _tail_calls(c)
+        zi = twk._impute_tail(B11, rhs)
+        p11, pstd, pmi, prhs = _plain_calls(c)
+        L, bad = torch.linalg.cholesky_ex(p11)
+        pz = region_tail.impute_finalize_plain(
+            torch.linalg.solve_triangular(L, prhs, upper=False), bad)
+    torch.cuda.synchronize()
+    assert region_tail.launches == {"corr_mm": 1, "corr_um_rhs": 1,
+                                    "impute_finalize": 1}
+    assert torch.equal(B11, B11.transpose(1, 2))
+    np.testing.assert_allclose(B11.cpu().numpy(), p11.cpu().numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(rhs.cpu().numpy(), prhs.cpu().numpy(),
+                               atol=1e-5)
+    np.testing.assert_allclose(std_m.cpu().numpy(), pstd.cpu().numpy(),
+                               rtol=1e-5)
+    if weighted:
+        np.testing.assert_allclose(mi_m.cpu().numpy(), pmi.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-6)
+    real = c["u_mask"].cpu().numpy() > 0
+    zi, pz = zi.cpu().numpy(), pz.cpu().numpy()
+    np.testing.assert_allclose(zi[0][real], pz[0][real], rtol=2e-4,
+                               atol=1e-4)
+    np.testing.assert_allclose(zi[1][real], pz[1][real], rtol=2e-4,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_region_tail_kernels_follow_the_tf32_switch_on_gpu():
+    """With allow_tf32 on and no full_f32_matmul around them, the kernels
+    round their products' operands to TF32 as the torch matmuls they
+    replaced do: B11, the right-hand side and z move from the f32 result
+    by a TF32-sized amount (well above the f32 noise between kernel and
+    plain version, well below the values)."""
+    c = _gpu_case(True)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        f32 = _tail_calls(c)
+        z32 = twk._impute_tail(f32[0], f32[3])
+        plain = _plain_calls(c)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        tf = _tail_calls(c)
+        ztf = twk._impute_tail(tf[0], tf[3])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    real = c["u_mask"] > 0
+    for k, what in ((0, "B11"), (3, "rhs")):
+        noise = float((f32[k] - plain[k]).abs().max())
+        moved = float((tf[k] - f32[k]).abs().max())
+        assert max(1e-6, 10 * noise) < moved < 1e-2, (what, noise, moved)
+    dz = float((ztf[0] - z32[0])[real].abs().max())
+    assert 1e-6 < dz < 0.5, dz
