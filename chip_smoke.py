@@ -189,6 +189,7 @@ read just after.  The line before the last is a JSON object
 import argparse
 import collections
 import contextlib
+import ctypes
 import dataclasses
 import glob
 import io
@@ -311,6 +312,15 @@ TAIL_KERNELS = {
                        "py:1261 (build_resident_region_kernel's tail, z2 and "
                        "info, XLA at Precision.HIGHEST)",
 }
+
+
+#: the region tail's kernel times on each path when each block computed one
+#: tile, before the persistent design (chip_smoke.py on an NVIDIA H100 80GB
+#: HBM3 at 700 W; the main path's shapes), printed beside this run's
+ONE_TILE_MS = {("impute", "corr_mm"): 0.483, ("qcat", "corr_mm"): 0.481,
+               ("LD", "corr_mm"): 0.152, ("impute", "corr_um_rhs"): 0.451,
+               ("qcat", "corr_um_rhs"): 0.447,
+               ("impute", "impute_finalize"): 0.077}
 
 
 def log(msg):
@@ -468,6 +478,16 @@ def phase_build():
             log(f"  ptxas: {line.strip()}")
     log(f"K1 dynamic shared memory per CTA: "
         f"{_build.library().gauss_weighted_gram_smem()} bytes")
+    stages = ctypes.c_int(0)
+    for P, pooled in ((29, 0), (1, 1)):
+        for name, sym in (("corr_mm", 1), ("corr_um_rhs", 0)):
+            smem = _build.library().gauss_region_tail_smem(
+                P, pooled, sym, ctypes.byref(stages))
+            groups = _build.library().gauss_region_tail_groups(P, pooled,
+                                                               sym)
+            log(f"{name} tile pass at P={P}{' pooled' if pooled else ''}: "
+                f"dynamic shared memory {smem} bytes per block, "
+                f"{stages.value} ring stages, {groups} consumer groups")
 
 
 def phase_main(dev, n_snps):
@@ -664,13 +684,14 @@ def f32_bound(flops, n_bytes):
 
 
 def tail_check(label, kernel, plain, args, err, tol, n_bytes, flops,
-               reps=5):
+               earlier=None, reps=5):
     """One region-tail kernel against its plain version (the torch passes
     it replaced) on one launch's arguments, both under full_f32_matmul as
     the resident kernels call them; ``err(got, ref)`` is the compared
     error, held to ``tol``.  Then both are timed (CUDA events) beside the
-    kernel's bound.  No single PyTorch call computes these functions:
-    library_ms is None."""
+    kernel's bound and ``earlier``, the kernel's recorded time before its
+    redesign (ONE_TILE_MS).  No single PyTorch call computes these
+    functions: library_ms is None."""
     with full_f32_matmul():
         got, ref = kernel(*args), plain(*args)
         torch.cuda.synchronize()
@@ -681,8 +702,10 @@ def tail_check(label, kernel, plain, args, err, tol, n_bytes, flops,
     b_ms, b_by = f32_bound(flops, n_bytes)
     log(f"{label}: max err {e:.3e} (tol {tol:g}); kernel {ms:.3f} ms, "
         f"bound {b_ms:.3f} ms ({b_by}: {n_bytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP f32) = {b_ms / ms:.1%} of bound; the "
-        f"torch passes it replaced (plain) {pms:.3f} ms")
+        f"{flops / 1e9:.2f} GFLOP f32) = {b_ms / ms:.1%} of bound"
+        + ("" if earlier is None else f" (one tile a block: {earlier:.3f} ms "
+           f"= {b_ms / earlier:.1%})")
+        + f"; the torch passes it replaced (plain) {pms:.3f} ms")
     if not e <= tol:
         raise AssertionError(f"{label} disagrees with its plain version: "
                              f"{e:.3e}")
@@ -742,7 +765,8 @@ def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
         f"B11 and std_m against the plain version)",
         region_tail.corr_mm, region_tail.corr_mm_plain, mm_args, _mm_err,
         TAIL_TOL, 4 * (lower + B * Mp * Mp + nst * B * Mp * P + B * Mp
-                       + nst * B * Mp), 2 * nst * P * lower)}
+                       + nst * B * Mp), 2 * nst * P * lower,
+        ONE_TILE_MS.get((label, "corr_mm")))}
     if kind == "ld":
         return checks
     with full_f32_matmul():
@@ -758,7 +782,7 @@ def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
         region_tail.corr_um_rhs_plain, um_args, _max_diff, TAIL_TOL,
         4 * (B * Up * Mp + nst * B * Up * P + B * Up + nst * B * Mp * P
              + (2 + nst) * B * Mp + B * Up + B * Mp * (Up + 1)),
-        2 * nst * P * B * Up * Mp)
+        2 * nst * P * B * Up * Mp, ONE_TILE_MS.get((label, "corr_um_rhs")))
     if kind == "impute":
         with full_f32_matmul():
             rhs = region_tail.corr_um_rhs(*um_args)
@@ -770,7 +794,8 @@ def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
             f"output, strides {tuple(Y.stride())})",
             region_tail.impute_finalize, region_tail.impute_finalize_plain,
             (Y, bad), _final_err, FINAL_RTOL,
-            4 * (B * Mp * (Up + 1) + 2 * B * Up + B), 4 * B * Up * Mp)
+            4 * (B * Mp * (Up + 1) + 2 * B * Up + B), 4 * B * Up * Mp,
+            ONE_TILE_MS.get((label, "impute_finalize")))
     return checks
 
 

@@ -1,6 +1,6 @@
-// Device helpers shared by the Hopper kernels (gram.cu, probe7_int4.cu):
-// mbarriers, cluster barriers, TMA loads, wgmma s8 and the encoding of TMA
-// tensor maps.  Each translation unit gets its own copy (anonymous
+// Device helpers shared by the Hopper kernels (gram.cu, probe7_int4.cu,
+// region_tail.cu): mbarriers, cluster barriers, TMA loads and stores,
+// wgmma s8 and the encoding of TMA tensor maps.  Each translation unit gets its own copy (anonymous
 // namespace); nothing here launches a kernel.
 
 #pragma once
@@ -91,6 +91,50 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       " [%0], [%1], %2, [%3];\n"
       :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
+}
+
+// The box at (col, row) of ``map``'s tensor from shared memory ``src``
+// (laid out as the box, 128-byte aligned) to global memory, in the calling
+// thread's current bulk group.  Before it, every thread that wrote ``src``
+// runs fence_proxy_async() and then meets the issuing thread at a barrier.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3}], [%1];\n"
+      :: "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)),
+         "r"(col), "r"(row)
+      : "memory");
+}
+
+// Closes the calling thread's current bulk group of stores.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the calling thread's bulk groups still read
+// their shared-memory sources: their buffers may then be written again.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" :: "n"(N) : "memory");
+}
+
+// Waits until at most N of the calling thread's bulk groups are pending.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Orders this thread's generic shared-memory writes before later accesses
+// of the async proxy (a TMA store of the same buffer).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier ``id`` (1..15; 0 is __syncthreads) over ``threads`` threads, a
+// multiple of 32.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
 }
 
 // The box lands at the same offset in the shared memory of every CTA in
@@ -221,18 +265,21 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// [rows, cols] bytes, row-major (row stride cols, a multiple of 16): boxes
-// of box_cols x box_rows, zero fill out of bounds.
+// [rows, cols] elements (bytes unless ``type`` says otherwise), row-major
+// (row stride cols elements, a multiple of 16 bytes): boxes of box_cols x
+// box_rows, zero fill out of bounds.
 inline bool encode(CUtensorMap* map, const void* base, long long rows,
                    long long cols, int box_cols, int box_rows,
-                   CUtensorMapSwizzle swizzle) {
+                   CUtensorMapSwizzle swizzle,
+                   CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                   int elem_bytes = 1) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr || rows <= 0) return false;
   cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  cuuint64_t strides[1] = {(cuuint64_t)cols};
+  cuuint64_t strides[1] = {(cuuint64_t)(cols * elem_bytes)};
   cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base),
+  return fn(map, type, 2, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

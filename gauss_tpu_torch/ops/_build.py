@@ -62,12 +62,19 @@ _SIGNATURES = {
     # (x, out, R, row_bytes, int4, cluster, stream)
     "gauss_resident_rowsum": [_P, _P, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, _P],
-    # region_tail: (T1, S, Mu, t0, R, mask, alpha, wts, P, B, Mp, diag,
-    #  pooled, tf32, std_out, mi_out, out, stream)
+    # region_tail: (P, pooled)
+    "gauss_region_pack_floats": [ctypes.c_int, ctypes.c_int],
+    # (P, pooled, sym, *stages)
+    "gauss_region_tail_smem": [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)],
+    # (P, pooled, sym)
+    "gauss_region_tail_groups": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    # (T1, S, Mu, t0, R, mask, alpha, wts, P, B, Mp, diag, pooled, tf32,
+    #  std_out, mi_out, pack, out, stream)
     "gauss_region_corr_mm": [_P, _P, _P, _P, ctypes.c_longlong, _P, _P, _P,
                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
                              ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                             _P, _P, _P, _P],
+                             _P, _P, _P, _P, _P],
     # (T1, Su, Muu, Vu, u0, Ru, Sm, Mum, m0, Rm, std_m, mi_m, u_mask,
     #  m_mask, z1, alpha, wts, P, B, Mp, Up, pooled, tf32, scratch, out,
     #  stream)

@@ -157,6 +157,14 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+def _pack_scratch(lib, n_tiles: int, P: int, pooled: bool, dev):
+    """The kernels' packed operands of ``n_tiles`` 64-row band tiles: each
+    tile's rank-P panels [1 or 2, P, 64], then its rows' std, mi and mask
+    [3, 64] (written by the kernel's pack pass, read by its tile pass)."""
+    n = n_tiles * lib.gauss_region_pack_floats(P, int(pooled))
+    return torch.empty((n,), dtype=torch.float32, device=dev)
+
+
 def _tiles(name, *sizes):
     if any(n % TILE for n in sizes):
         raise ValueError(f"{name}: sizes {sizes} must be multiples of {TILE}")
@@ -192,13 +200,14 @@ def corr_mm(T1: torch.Tensor, Spm: torch.Tensor, Mum: torch.Tensor,
     out = torch.empty_like(T1)
     std = torch.empty((B, Mp), dtype=torch.float32, device=dev)
     mi = None if w is None else torch.empty_like(std)
+    pack = _pack_scratch(lib, 2 * B * (Mp // TILE), P, w is None, dev)
     with torch.cuda.device(dev):
         err = lib.gauss_region_corr_mm(
             T1.data_ptr(), Spm.data_ptr(), Mum.data_ptr(), m_t0.data_ptr(),
             Spm.shape[0], m_mask.data_ptr(), alpha.data_ptr(), _ptr(w), P, B,
             Mp, float(diag), int(w is None),
             int(torch.backends.cuda.matmul.allow_tf32), std.data_ptr(),
-            _ptr(mi), out.data_ptr(), _stream(dev))
+            _ptr(mi), pack.data_ptr(), out.data_ptr(), _stream(dev))
     _build.check(err, "corr_mm")
     launches["corr_mm"] += 1
     return out, std, mi
@@ -238,7 +247,7 @@ def corr_um_rhs(T1: torch.Tensor, Spu: torch.Tensor, Muu: torch.Tensor,
     if T1.data_ptr() % 16:
         raise ValueError("corr_um_rhs: T1 must be 16-byte aligned")
     out = torch.empty((B, Up + 1, Mp), dtype=torch.float32, device=dev)
-    scratch = torch.empty((2, B, Up), dtype=torch.float32, device=dev)
+    scratch = _pack_scratch(lib, B * ((Up + Mp) // TILE), P, w is None, dev)
     with torch.cuda.device(dev):
         err = lib.gauss_region_corr_um_rhs(
             T1.data_ptr(), Spu.data_ptr(), Muu.data_ptr(), Vu.data_ptr(),

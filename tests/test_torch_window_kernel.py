@@ -191,14 +191,22 @@ def test_failed_cholesky_gives_nan_window():
 
 # -- the region tail's kernels (ops/region_tail) ------------------------------
 
-def _tail_case(weighted, W=3, Mp=128, Up=64, seed=15):
-    """One slab of the tail's inputs on the CPU, from a random panel of 3
-    populations with LD between neighbouring SNPs: the resident statistics
-    (prepare_resident_panel), the band offsets, masks with padding rows in
-    every window, K1's Grams (plain version; T1_mm's strict upper triangle
-    overwritten with garbage, as sym mode leaves it), Z1, alpha and w."""
+def _tail_case(weighted, W=3, Mp=128, Up=64, seed=15, pops=3, past_r=False,
+               device="cpu"):
+    """One slab of the tail's inputs on ``device``, from a random panel of
+    ``pops`` populations with LD between neighbouring SNPs: the resident
+    statistics (prepare_resident_panel), the band offsets, masks with
+    padding rows in every window, K1's Grams (T1_mm's strict upper triangle
+    overwritten with garbage, as sym mode leaves it), Z1, alpha and w.
+    ``past_r``: the resident arrays end at the last window's last real row,
+    so its bands run past them (masked rows that read as zero)."""
     rng = np.random.default_rng(seed)
-    sizes, R = (40, 50, 38), 260
+    if pops == 3:
+        sizes, wgts = (40, 50, 38), (0.5, 0.3, 0.2)
+    else:
+        sizes = tuple(int(m) for m in rng.integers(6, 14, pops))
+        wgts = tuple(float(x) for x in rng.dirichlet(np.ones(pops)))
+    R = max(260, 20 * (W - 1) + Mp)
     freq = rng.uniform(0.05, 0.6, (len(sizes),))
     cols = []
     for f, m in zip(freq, sizes):
@@ -212,8 +220,9 @@ def _tail_case(weighted, W=3, Mp=128, Up=64, seed=15):
     G = np.concatenate(cols, axis=1).astype(np.int8)
     Gp, padded = twk.pad_pop_segments(G, sizes, multiple=pg.K_TILE)
     spec = twk.WindowKernelSpec(pop_sizes=sizes, pop_sizes_padded=padded,
-                                wgts=(0.5, 0.3, 0.2) if weighted else None)
-    Ms, Us = (Mp - 17, Mp - 40, 9)[:W], (Up - 5, 30, Up)[:W]
+                                wgts=wgts if weighted else None)
+    Ms = [(Mp - 17, Mp - 40, 9)[w % 3] for w in range(W)]
+    Us = [(Up - 5, 30, Up)[w % 3] for w in range(W)]
     rows_m = np.full(W * Mp, -1, np.int32)
     rows_u = np.full(W * Up, -1, np.int32)
     m_mask = np.zeros((W, Mp), np.float32)
@@ -223,26 +232,47 @@ def _tail_case(weighted, W=3, Mp=128, Up=64, seed=15):
         rows_u[w * Up:w * Up + Us[w]] = rng.choice(R, Us[w], replace=False)
         m_mask[w, :Ms[w]] = 1
         u_mask[w, :Us[w]] = 1
-    Gt = torch.from_numpy(Gp)
+    if past_r:
+        rows_m = rows_m[:(W - 1) * Mp + Ms[-1]]
+        rows_u = rows_u[:(W - 1) * Up + Us[-1]]
+    dev = torch.device(device)
+    Gt = torch.from_numpy(Gp).to(dev)
     Xm, Spm, Mum, _ = twk.prepare_resident_panel(
-        Gt, torch.from_numpy(rows_m), None, spec)
+        Gt, torch.from_numpy(rows_m).to(dev), None, spec)
     Xu, Spu, Muu, Vu = twk.prepare_resident_panel(
-        Gt, torch.from_numpy(rows_u), None, spec)
-    m_t0 = torch.arange(W, dtype=torch.int32) * Mp
-    u_t0 = torch.arange(W, dtype=torch.int32) * Up
+        Gt, torch.from_numpy(rows_u).to(dev), None, spec)
+    m_t0 = (torch.arange(W, dtype=torch.int32) * Mp).to(dev)
+    u_t0 = (torch.arange(W, dtype=torch.int32) * Up).to(dev)
     segs = twk._gram_segments(spec)
     t1_mm = gram.weighted_gram_t1(Xm, Xm, *segs, m_t0, m_t0, Mp, Mp,
                                   sym=True)
     t1_mm += torch.triu(torch.from_numpy(rng.standard_normal(
-        (W, Mp, Mp)).astype(np.float32)) * 1e3, 1)
+        (W, Mp, Mp)).astype(np.float32)) * 1e3, 1).to(dev)
     t1_um = gram.weighted_gram_t1(Xu, Xm, *segs, u_t0, m_t0, Up, Mp)
     z1 = (rng.standard_normal((W, Mp)) * 1.5 * m_mask).astype(np.float32)
-    alpha, w = twk._ResidentBlocks(spec, Mp, Up).weights(torch.device("cpu"))
+    alpha, w = twk._ResidentBlocks(spec, Mp, Up).weights(dev)
     return dict(t1_mm=t1_mm, t1_um=t1_um, Spm=Spm, Mum=Mum, Spu=Spu,
                 Muu=Muu, Vu=Vu, m_t0=m_t0, u_t0=u_t0,
-                m_mask=torch.from_numpy(m_mask),
-                u_mask=torch.from_numpy(u_mask), z1=torch.from_numpy(z1),
-                alpha=alpha, w=w, diag=1.1)
+                m_mask=torch.from_numpy(m_mask).to(dev),
+                u_mask=torch.from_numpy(u_mask).to(dev),
+                z1=torch.from_numpy(z1).to(dev), alpha=alpha, w=w, diag=1.1)
+
+
+def _padded(c):
+    """The case with its statistics padded by zero rows to cover every
+    band: what the kernels read past the arrays' end, for the plain
+    versions and the formulas, which index the rows."""
+    Mp, Up = c["t1_mm"].shape[1], c["t1_um"].shape[1]
+    n_m = int(c["m_t0"].max()) + Mp
+    n_u = int(c["u_t0"].max()) + Up
+
+    def pad(A, n):
+        return torch.cat([A, A.new_zeros((max(0, n - A.shape[0]),)
+                                         + A.shape[1:])])
+
+    return dict(c, Spm=pad(c["Spm"], n_m), Mum=pad(c["Mum"], n_m),
+                Spu=pad(c["Spu"], n_u), Muu=pad(c["Muu"], n_u),
+                Vu=pad(c["Vu"], n_u))
 
 
 def _tail_calls(c):
@@ -293,16 +323,28 @@ def _tail_formulas(c):
                                 f(c["z1"])[:, :, None]], axis=2)
 
 
+# (W, Mp, Up, populations, bands past the statistics' end): the card's
+# cases, from more tiles than resident blocks (16 x 78 corr_mm and 16 x 96
+# corr_um_rhs tiles, the last window's bands running past R) to one tile
+TAIL_SHAPES = {
+    "W3-Mp128-Up64-P3": (3, 128, 64, 3, False),
+    "W16-Mp768-Up512-P29-past-R": (16, 768, 512, 29, True),
+    "W1-Mp64-Up64-P29": (1, 64, 64, 29, False),
+    "W1-Mp1280-Up960-P29": (1, 1280, 960, 29, False),
+}
+
+
+@pytest.mark.parametrize("shape", ["W3-Mp128-Up64-P3", "W1-Mp64-Up64-P29"])
 @pytest.mark.parametrize("weighted", [True, False])
-def test_region_tail_plain_versions_match_formulas(weighted):
+def test_region_tail_plain_versions_match_formulas(weighted, shape):
     """ops/region_tail's plain versions (CPU tensors take them) against the
     formulas in float64, masked rows included; B11 and the right-hand side
     to 1e-5 (f32 arithmetic on correlations of a few hundred subjects),
     masked rows and columns exactly zero, Z1 the last column."""
-    c = _tail_case(weighted)
+    W, Mp, Up, pops, _ = TAIL_SHAPES[shape]
+    c = _tail_case(weighted, W, Mp, Up, pops=pops)
     B11, std_m, mi_m, rhs = _tail_calls(c)
     ref11, ref_rhs = _tail_formulas(c)
-    W, Mp, Up = 3, 128, 64
     assert B11.shape == (W, Mp, Mp) and rhs.shape == (W, Mp, Up + 1)
     assert std_m.shape == (W, Mp) and (mi_m is None) == (not weighted)
     np.testing.assert_allclose(B11.numpy(), ref11, atol=1e-5)
@@ -407,45 +449,49 @@ def test_cuda_tensors_never_fall_back(monkeypatch):
             call()
 
 
-def _gpu_case(weighted):
+def _gpu_case(weighted, shape="W3-Mp128-Up64-P3"):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    c = _tail_case(weighted)
-    return {k: v.cuda() if isinstance(v, torch.Tensor) else v
-            for k, v in c.items()}
+    W, Mp, Up, pops, past_r = TAIL_SHAPES[shape]
+    return _tail_case(weighted, W, Mp, Up, pops=pops, past_r=past_r,
+                      device="cuda")
 
 
 def _plain_calls(c):
+    """_tail_calls through the plain versions, on the zero-padded
+    statistics (they index the rows)."""
     saved = {n: getattr(region_tail, n) for n in ("corr_mm", "corr_um_rhs")}
     try:
         region_tail.corr_mm = region_tail.corr_mm_plain
         region_tail.corr_um_rhs = region_tail.corr_um_rhs_plain
-        return _tail_calls(c)
+        return _tail_calls(_padded(c))
     finally:
         for n, f in saved.items():
             setattr(region_tail, n, f)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("shape", list(TAIL_SHAPES))
 @pytest.mark.parametrize("weighted", [True, False])
-def test_region_tail_kernels_match_plain_on_gpu(weighted):
-    """Each kernel against its plain version on the card at W=3, Mp=128,
-    Up=64, P=3 (and pooled): B11 and the right-hand side to 1e-5, B11
-    exactly symmetric, z and info within the region bar; each launched
-    once per call."""
-    c = _gpu_case(weighted)
+def test_region_tail_kernels_match_plain_on_gpu(weighted, shape):
+    """Each kernel against its plain version on the card, weighted and
+    pooled, at every TAIL_SHAPES case (more tiles than resident blocks,
+    bands past the statistics' end, one tile, one window): B11 and the
+    right-hand side to 1e-5, B11 exactly symmetric, std to rtol 1e-5, z
+    and info within the region bar; each launched once per call."""
+    c = _gpu_case(weighted, shape)
     with full_f32_matmul():
         for k in region_tail.launches:
             region_tail.launches[k] = 0
         B11, std_m, mi_m, rhs = _tail_calls(c)
         zi = twk._impute_tail(B11, rhs)
+        launched = dict(region_tail.launches)
         p11, pstd, pmi, prhs = _plain_calls(c)
         L, bad = torch.linalg.cholesky_ex(p11)
         pz = region_tail.impute_finalize_plain(
             torch.linalg.solve_triangular(L, prhs, upper=False), bad)
     torch.cuda.synchronize()
-    assert region_tail.launches == {"corr_mm": 1, "corr_um_rhs": 1,
-                                    "impute_finalize": 1}
+    assert launched == {"corr_mm": 1, "corr_um_rhs": 1, "impute_finalize": 1}
     assert torch.equal(B11, B11.transpose(1, 2))
     np.testing.assert_allclose(B11.cpu().numpy(), p11.cpu().numpy(),
                                atol=1e-5)
@@ -462,6 +508,24 @@ def test_region_tail_kernels_match_plain_on_gpu(weighted):
                                atol=1e-4)
     np.testing.assert_allclose(zi[1][real], pz[1][real], rtol=2e-4,
                                atol=2e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [True, False])
+def test_region_tail_failed_window_is_nan_on_gpu(weighted):
+    """On the card, at more tiles than resident blocks: a window whose B11
+    is not positive definite gets NaN z and info, the others stay finite
+    on their real columns."""
+    c = _gpu_case(weighted, "W16-Mp768-Up512-P29-past-R")
+    with full_f32_matmul():
+        B11, _, _, rhs = _tail_calls(c)
+        B11[5, 3, 3] = -1.0
+        out = twk._impute_tail(B11, rhs).cpu()
+    real = (c["u_mask"] > 0).cpu()
+    assert torch.isnan(out[:, 5]).all()
+    for w in range(16):
+        if w != 5:
+            assert torch.isfinite(out[:, w][:, real[w]]).all(), w
 
 
 @pytest.mark.gpu
