@@ -1,7 +1,7 @@
 #!/usr/bin/env python
-"""Time K1, K2, K3 and K4 on one CUDA card at the main path's and the
-probe's shapes, beside another build of the same kernels and one PyTorch
-call for the same work.
+"""Time K1, K2, K3, K4 and the region tail's Cholesky solve on one CUDA
+card at the main path's and the probe's shapes, beside another build of
+the same kernels and one PyTorch call for the same work.
 
     python3 bench_kernels.py [--other DIR] [--reps N] [--out FILE]
 
@@ -24,7 +24,15 @@ each population padded to 64 columns: S = 34,176):
 - K4 at the largest block of 43,008-value rows that fits one cluster,
   int8 and int4, clusters of 1 and 8 (chip_smoke phase 9), timed on the
   device alone (chip_smoke.device_ms: a call's host path is longer than
-  its device work).
+  its device work);
+- cholesky_solve (ops/region_tail) at Mp = 1280, K = 961 over W = 43
+  windows (the region slab), 7 (a runner chunk) and 1 (the device
+  impute_window): B11 the correlations over 640 subjects of AR(1) rows
+  (rho 0.8) with the ridge 1.1 on the diagonal, the right-hand side their
+  correlations with 960 more rows and a z column; beside the library pair
+  cholesky_ex + solve_triangular, both against a float64 solve (normwise),
+  timed on fresh copies of its inputs (it solves in place).  Not timed
+  against --other.
 
 For each it prints the kernel's time (CUDA events, median of --reps after
 a warm-up), its bound (chip_smoke.bound: operations at the int8 peak or
@@ -51,9 +59,12 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-from chip_smoke import (bound, cuda_ms, device_ms, k1_bound,   # noqa: E402
-                        k1_library_ms, log, phase_build, phase_device)
+from chip_smoke import (bound, cuda_ms, cuda_ms_fresh,        # noqa: E402
+                        device_ms, f32_bound, k1_bound, k1_library_ms,
+                        log, normwise, phase_build, phase_device)
+from gauss_tpu_torch.core.stats import full_f32_matmul         # noqa: E402
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
+from gauss_tpu_torch.ops import region_tail                    # noqa: E402
 from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.benchdata import POPS_33KG          # noqa: E402
 
@@ -214,6 +225,71 @@ def bench_k4(dev, other):
     return out
 
 
+def solve_blocks(dev, g, nw, Mp=1280, Up=960, n=640, rho=0.8):
+    """(B11 [nw, Mp, Mp], rhs [nw, Mp, Up + 1] column-major) as the
+    docstring says, made on the card from ``g``."""
+    R = Mp + Up
+    eps = torch.randn((nw, R, n), device=dev, generator=g)
+    X = torch.empty_like(eps)
+    X[:, 0] = eps[:, 0]
+    for r in range(1, R):
+        X[:, r] = rho * X[:, r - 1] + (1 - rho * rho) ** 0.5 * eps[:, r]
+    X = X - X.mean(dim=2, keepdim=True)
+    X = X / X.norm(dim=2, keepdim=True)
+    k = min(Mp, Up)                     # every other row measured, then
+    m = torch.cat([torch.arange(0, 2 * k, 2), torch.arange(2 * k, R)])[:Mp]
+    u = torch.ones(R, dtype=torch.bool)  # the rest
+    u[m] = False
+    Xm, Xu = X[:, m.to(dev)], X[:, u.to(dev)]
+    with full_f32_matmul():
+        B11 = torch.bmm(Xm, Xm.transpose(1, 2))
+        B21 = torch.bmm(Xu, Xm.transpose(1, 2))
+    B11.diagonal(dim1=1, dim2=2).fill_(1.1)
+    rhs = torch.empty((nw, Up + 1, Mp), device=dev)
+    rhs[:, :Up] = B21
+    rhs[:, Up] = 1.5 * torch.randn((nw, Mp), device=dev, generator=g)
+    return B11, rhs.transpose(1, 2)
+
+
+def bench_solve(dev, g, reps):
+    """cholesky_solve at W = 43, 7 and 1 beside the library pair."""
+    out = {}
+    for nw in (W, 7, 1):
+        B11, rhs = solve_blocks(dev, g, nw)
+        Bk, Rk = B11.clone(), rhs.clone()
+        nb, Mp, K = rhs.shape
+        with full_f32_matmul():
+            Y = region_tail.cholesky_solve(Bk, Rk)[0]
+            pY = region_tail.cholesky_solve_plain(B11, rhs)[0]
+            L64 = torch.linalg.cholesky_ex(B11.double())[0]
+            Y64 = torch.linalg.solve_triangular(L64, rhs.double(),
+                                                upper=False)
+            acc, lib_acc = normwise(Y.double(), Y64), normwise(pY.double(),
+                                                               Y64)
+            del Y, pY, L64, Y64
+
+            def fresh():
+                Bk.copy_(B11)
+                Rk.copy_(rhs)
+
+            ms = cuda_ms_fresh(fresh, lambda: region_tail.cholesky_solve(
+                Bk, Rk), reps)
+            lib_ms = cuda_ms(lambda: region_tail.cholesky_solve_plain(
+                B11, rhs), reps)
+        b_ms, b_by = f32_bound(nw * (Mp ** 3 / 3 + Mp * Mp * K),
+                               4 * (nw * Mp * (Mp + 1) // 2 + 2 * nw * Mp * K))
+        out[f"W={nw}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=lib_ms, err_f64=acc,
+                              library_err_f64=lib_acc)
+        log(f"cholesky_solve W={nw} Mp={Mp} K={K}: {ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by}) = {b_ms / ms:.1%}; the library pair "
+            f"{lib_ms:.3f} ms; normwise against float64 {acc:.3e}, the "
+            f"pair's {lib_acc:.3e}")
+        del B11, rhs, Bk, Rk
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="root of another checkout whose "
@@ -307,6 +383,7 @@ def main():
     torch.cuda.empty_cache()
     results["k3"] = bench_k3(dev, g, other, args.reps)
     results["k4"] = bench_k4(dev, other)
+    results["cholesky_solve"] = bench_solve(dev, g, args.reps)
     print(json.dumps(results), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

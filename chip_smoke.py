@@ -8,17 +8,17 @@ Phases (each prints its evidence; any failure exits non-zero):
 
 1. device  -- needs torch.cuda; prints the card and its power limit.
 2. build   -- compiles the CUDA kernels (K1 gram, K2 gather, K3/K4, the
-              region tail's) from gauss_tpu_torch/csrc with nvcc for
-              sm_90a; prints ptxas's registers, spills and shared memory
-              per kernel and K1's dynamic shared memory.
+              region tail's, the Cholesky solve's) from gauss_tpu_torch/csrc
+              with nvcc for sm_90a; prints ptxas's registers, spills and
+              shared memory per kernel and K1's dynamic shared memory.
 3. main    -- the bench workload: a 33KG-shaped panel (29 populations,
               33,153 subjects) of --snps SNPs at 1,500 SNPs/Mb, 40%
               measured, 1 Mb windows with 500 kb wings, imputed by
               GenomeEngine.prepare_mix -> impute_region (twice, blocking)
               -> impute_regions (8 passes, 2 in flight).  The kernels'
               launch counts must rise during it: K1 twice and each region
-              tail kernel (corr_mm, corr_um_rhs, impute_finalize) once per
-              region call.
+              tail kernel (corr_mm, corr_um_rhs, cholesky_solve,
+              impute_finalize) once per region call.
 4. kernels -- each kernel against its plain PyTorch version on the card,
               on the main path's own region batch (K1 rel err <= 1e-6,
               K2 bit-equal), timed with CUDA events beside its bound (the
@@ -29,11 +29,17 @@ Phases (each prints its evidence; any failure exits non-zero):
               on K1's Gram (B11 exactly symmetric; B11 and std_m within
               TAIL_TOL of the plain version), corr_um_rhs on the kernel's
               std_m / mi_m (the right-hand side within TAIL_TOL),
-              impute_finalize on the solve of the kernel's blocks (z and
-              info within FINAL_RTOL), each under full_f32_matmul, timed
-              beside its bound (bytes at the HBM rate or f32 operations
-              at 67 TFLOP/s) and its plain version, the torch passes it
-              replaced; no single PyTorch call computes them.
+              cholesky_solve on those blocks (info equal, Y normwise
+              within SOLVE_TOL of the library pair cholesky_ex +
+              solve_triangular, its plain version, and no less accurate
+              than SOLVE_ACC x that pair against a float64 solve),
+              impute_finalize on the kernel's solve (z and info within
+              FINAL_RTOL), each under full_f32_matmul, timed beside its
+              bound (bytes at the HBM rate or f32 operations at 67
+              TFLOP/s) and its plain version, the torch passes it
+              replaced (for cholesky_solve the library pair, also its
+              library_ms); one profiled region call must run the solve's
+              three kernels and no kernel of the library's potrf / trsm.
 5. parity  -- the first window against the port's float64 window path
               (its correlation blocks on the card, its solve on the
               host): max|dZ| <= 1e-4 on imputed rows, measured rows
@@ -58,8 +64,10 @@ Phases (each prints its evidence; any failure exits non-zero):
 7. qcat    -- PreparedRun.qcat_region over the same region with impute's
               windows (its region batch rebuilt, so K2 runs too): K1 twice
               per slab of windows, checked against its plain version at
-              both shapes with its bound and yardstick, corr_mm and
-              corr_um_rhs (each launched once per slab) as in phase 4;
+              both shapes with its bound and yardstick, corr_mm,
+              corr_um_rhs and cholesky_solve (each launched once per slab;
+              the solve with want_l, L held too) as in phase 4, and the
+              profiled region call as there;
               the first, middle and last windows
               against the float64 host qcat (_qcat_core on
               _build_corr_blocks_fn's blocks): qcat_m equal, max|dr| <=
@@ -295,23 +303,39 @@ TAIL_TOL = 1e-5          # the region tail's blocks (B11, [B21^T | Z1]),
 FINAL_RTOL = 1e-5        # z and info, kernel against plain version on the
                          # same solve output: f32 sums over the Mp rows in
                          # another order, relative to max(1, |value|)
+SOLVE_TOL = 1e-5         # cholesky_solve against the library pair, Y and L
+                         # normwise: two backward-stable f32 algorithms,
+                         # blocked differently
+SOLVE_ACC = 2.0          # its error against a float64 solve of the same
+                         # inputs, at most this times the library pair's
 # published peaks of one H100 SXM (dense int8 tensor-core rate, f32 outside
 # the tensor cores, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
 FP32_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
-#: the region tail's kernels and the reference code they replace (XLA at
-#: Precision.HIGHEST on the TPU; no Pallas kernel)
+#: the region tail's kernels, their sources and the reference code they
+#: replace (XLA at Precision.HIGHEST on the TPU; no Pallas kernel)
 TAIL_KERNELS = {
-    "corr_mm": "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:980 "
-               "(_resident_block_builder, XLA at Precision.HIGHEST)",
-    "corr_um_rhs": "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:"
-                   "980 (_resident_block_builder, XLA at Precision.HIGHEST; "
-                   "the [B21^T | Z1] concatenation at :1286)",
-    "impute_finalize": "no Pallas counterpart: gauss_tpu/ops/window_kernel."
-                       "py:1261 (build_resident_region_kernel's tail, z2 and "
-                       "info, XLA at Precision.HIGHEST)",
+    "corr_mm": ("gauss_tpu_torch/csrc/region_tail.cu",
+                "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:980 "
+                "(_resident_block_builder, XLA at Precision.HIGHEST)"),
+    "corr_um_rhs": ("gauss_tpu_torch/csrc/region_tail.cu",
+                    "no Pallas counterpart: gauss_tpu/ops/window_kernel.py:"
+                    "980 (_resident_block_builder, XLA at Precision.HIGHEST;"
+                    " the [B21^T | Z1] concatenation at :1286)"),
+    "cholesky_solve": ("gauss_tpu_torch/csrc/chol_solve.cu",
+                       "no Pallas counterpart: gauss_tpu/ops/window_kernel.py"
+                       ":1160-1258 (_blocked_cholesky_lower, "
+                       "_blocked_trsm_lower; the region tail's solve at "
+                       ":1278-1300, XLA at Precision.HIGHEST)"),
+    "impute_finalize": ("gauss_tpu_torch/csrc/region_tail.cu",
+                        "no Pallas counterpart: gauss_tpu/ops/window_kernel."
+                        "py:1261 (build_resident_region_kernel's tail, z2 "
+                        "and info, XLA at Precision.HIGHEST)"),
 }
+#: kernel names of the library's Cholesky and triangular solve (cuSOLVER's
+#: potrf, cuBLAS's trsm and what they call): none may run in a region call
+LIBRARY_SOLVE = re.compile(r"potrf|trsm|trtri|getrf|syrk", re.I)
 
 
 #: the region tail's kernel times on each path when each block computed one
@@ -488,6 +512,10 @@ def phase_build():
             log(f"{name} tile pass at P={P}{' pooled' if pooled else ''}: "
                 f"dynamic shared memory {smem} bytes per block, "
                 f"{stages.value} ring stages, {groups} consumer groups")
+    lib = _build.library()
+    log(f"cholesky_solve: dynamic shared memory {lib.gauss_chol_solve_smem(0)}"
+        f" bytes per factorization block, {lib.gauss_chol_solve_smem(1)} per "
+        f"solve block")
 
 
 def phase_main(dev, n_snps):
@@ -783,12 +811,14 @@ def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
         4 * (B * Up * Mp + nst * B * Up * P + B * Up + nst * B * Mp * P
              + (2 + nst) * B * Mp + B * Up + B * Mp * (Up + 1)),
         2 * nst * P * B * Up * Mp, ONE_TILE_MS.get((label, "corr_um_rhs")))
+    with full_f32_matmul():
+        rhs = region_tail.corr_um_rhs(*um_args)
+    del um_args
+    checks["cholesky_solve"] = solve_check(label, B11, rhs, kind == "qcat")
     if kind == "impute":
         with full_f32_matmul():
-            rhs = region_tail.corr_um_rhs(*um_args)
-            L, bad = torch.linalg.cholesky_ex(B11)
-            Y = torch.linalg.solve_triangular(L, rhs, upper=False)
-        del um_args, rhs, L
+            Y, _, bad = region_tail.cholesky_solve(B11, rhs)
+        del rhs
         checks["impute_finalize"] = tail_check(
             f"{label} impute_finalize (B={B}, Mp={Mp}, Up={Up}; the solve's "
             f"output, strides {tuple(Y.stride())})",
@@ -797,6 +827,114 @@ def tail_checks(label, spec, Mp, Up, arrays, inputs, kind):
             4 * (B * Mp * (Up + 1) + 2 * B * Up + B), 4 * B * Up * Mp,
             ONE_TILE_MS.get((label, "impute_finalize")))
     return checks
+
+
+def cuda_ms_fresh(setup, fn, reps):
+    """cuda_ms of fn() alone when each call needs setup() first (a kernel
+    that overwrites its inputs): setup is queued before each call's first
+    event, so its device time is not counted."""
+    for _ in range(2):
+        setup()
+        fn()
+    torch.cuda.synchronize()
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in events:
+        setup()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    return statistics.median(a.elapsed_time(b) for a, b in events)
+
+
+def normwise(got, ref):
+    """max|got - ref| / max|ref|."""
+    return float((got - ref).abs().max() / ref.abs().max())
+
+
+def solve_check(label, B11, rhs, want_l, reps=5):
+    """cholesky_solve (in place) against its plain version, the library
+    pair cholesky_ex + solve_triangular, on one slab's own blocks (corr_mm's
+    B11, corr_um_rhs's column-major right-hand side), under
+    full_f32_matmul: info equal; Y (and with want_l L) normwise within
+    SOLVE_TOL of the plain version's; each against a float64 solve of the
+    same f32 inputs, the kernel within SOLVE_ACC times the library's
+    error.  Timed (CUDA events around the kernel alone, fresh copies of
+    its inputs queued before each call) beside the library pair, which is
+    both plain_ms and library_ms, and the FLOP bound: B (Mp^3 / 3 +
+    Mp^2 K) at the f32 peak; bytes B11's lower triangle and rhs read, Y
+    (and L) written."""
+    B, Mp, K = rhs.shape
+    with full_f32_matmul():
+        Bk, Rk = B11.clone(), rhs.clone()
+        Y, L, info = region_tail.cholesky_solve(Bk, Rk, want_l)
+        pY, pL, pinfo = region_tail.cholesky_solve_plain(B11, rhs, want_l)
+        L64, _ = torch.linalg.cholesky_ex(B11.double())
+        Y64 = torch.linalg.solve_triangular(L64, rhs.double(), upper=False)
+        torch.cuda.synchronize()
+        same_info = torch.equal(info, pinfo)
+        err = normwise(Y, pY)
+        acc, lib_acc = normwise(Y, Y64), normwise(pY, Y64)
+        if want_l:
+            err = max(err, normwise(L, pL))
+            acc = max(acc, normwise(L, L64))
+            lib_acc = max(lib_acc, normwise(pL, L64))
+        del Y, L, pY, pL, L64, Y64
+
+        def fresh():
+            Bk.copy_(B11)
+            Rk.copy_(rhs)
+
+        ms = cuda_ms_fresh(fresh, lambda: region_tail.cholesky_solve(
+            Bk, Rk, want_l), reps)
+        pms = cuda_ms(lambda: region_tail.cholesky_solve_plain(
+            B11, rhs, want_l), reps)
+    flops = B * (Mp ** 3 / 3 + Mp * Mp * K)
+    n_bytes = 4 * (B * Mp * (Mp + 1) // 2 + 2 * B * Mp * K
+                   + (B * Mp * Mp if want_l else 0))
+    b_ms, b_by = f32_bound(flops, n_bytes)
+    log(f"{label} cholesky_solve (B={B}, Mp={Mp}, K={K}, want_l={want_l}; "
+        f"info equal={same_info}, {int((info != 0).sum())} failed): "
+        f"normwise err {err:.3e} against the library pair (tol "
+        f"{SOLVE_TOL:g}); against float64 {acc:.3e}, the library's "
+        f"{lib_acc:.3e} ({acc / lib_acc:.2f}x, limit {SOLVE_ACC:g}x); "
+        f"kernel {ms:.3f} ms,"
+        f" bound {b_ms:.3f} ms ({b_by}: {flops / 1e9:.2f} GFLOP f32, "
+        f"{n_bytes / 1e6:.1f} MB) = {b_ms / ms:.1%} of bound; the library "
+        f"pair (plain, library_ms) {pms:.3f} ms; 1 launch per slab")
+    del Bk, Rk
+    torch.cuda.empty_cache()
+    if not (same_info and err <= SOLVE_TOL and acc <= SOLVE_ACC * lib_acc):
+        raise AssertionError(f"{label} cholesky_solve disagrees with its "
+                             f"plain version")
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
+                bound_by=b_by, library_ms=pms, err_f64=acc,
+                library_err_f64=lib_acc)
+
+
+#: the kernels cholesky_solve launches (the factorization's two steps, the
+#: forward solve)
+SOLVE_KERNELS = ("chol_diag_kernel", "chol_panel_kernel",
+                 "forward_solve_kernel")
+
+
+def no_library_solve(label, fn):
+    """One profiled region call: each of cholesky_solve's kernels ran and
+    no kernel of the library's Cholesky or triangular solve did."""
+    _, kernels = device_ms(fn, reps=1)
+    if not kernels:
+        log(f"{label}: profiled region call kept no kernel record; the "
+            f"library check is not measured")
+        return
+    lib = sorted(k for k in kernels if LIBRARY_SOLVE.search(k))
+    ours = sorted(k for k in kernels if k.startswith(SOLVE_KERNELS))
+    log(f"{label}: one profiled region call ran {len(kernels)} kernels; "
+        f"the solve's: {', '.join(ours)}; the library's solver kernels: "
+        f"{lib or 'none'}")
+    if lib or len(ours) != len(SOLVE_KERNELS):
+        raise AssertionError(f"{label}: the region call did not solve "
+                             f"through cholesky_solve alone")
 
 
 def segments(run):
@@ -828,8 +966,11 @@ def phase_kernels(engine, run, batch, region_ms):
         f"tail {region_ms - k1['ms']:.3f} ms, of which the tail kernels "
         f"{tail_ms:.3f} ms (" + ", ".join(f"{k} {c['ms']:.3f}"
                                          for k, c in tail.items())
-        + f") and the solves with the rest "
+        + f", the solve kernel among them) and the rest "
         f"{region_ms - k1['ms'] - tail_ms:.3f} ms")
+    fn = run._kernel_fn("impute", Mp, Up)
+    no_library_solve("impute", lambda: fn(*batch.arrays, *batch.inputs,
+                                          *batch.compact))
 
     # K2 on the batch's own index vectors: both bands' row ids, -1
     # sentinels padding each window's band
@@ -1093,10 +1234,12 @@ def phase_qcat(engine, run, lo, hi, reps=5):
     if launches["gather_rows"] < 1:
         raise AssertionError("K2 was not launched for the qcat batch")
     tail_launched(launches, "qcat_region x2",
-                  {"corr_mm": 2 * slabs, "corr_um_rhs": 2 * slabs})
+                  {"corr_mm": 2 * slabs, "corr_um_rhs": 2 * slabs,
+                   "cholesky_solve": 2 * slabs})
 
     fn = run._kernel_fn("qcat", b.Mp, b.Up)
     dev_ms = cuda_ms(lambda: fn(*b.arrays, *b.inputs), reps)
+    no_library_solve("qcat", lambda: fn(*b.arrays, *b.inputs))
     Xm, Xu = b.arrays[0], b.arrays[1]
     m0, u0 = b.inputs[0], b.inputs[1]
     seg = segments(run)
@@ -2442,8 +2585,7 @@ def main():
                      "probes/probe7_int4.py:49"),
         "resident_rowsum": ("gauss_tpu_torch/csrc/probe7_int4.cu",
                             "probes/probe7_int4.py:71"),
-        **{k: ("gauss_tpu_torch/csrc/region_tail.cu", v)
-           for k, v in TAIL_KERNELS.items()},
+        **TAIL_KERNELS,
     }
     # ms / plain_ms / bound_ms / library_ms of each row: the impute batch
     # (K1, K2), K1's yardstick shape (K3), int8 in clusters of 8 (K4); the
@@ -2462,6 +2604,8 @@ def main():
                     qcat_checks["corr_mm"], "ld": ld_checks["corr_mm"]},
         "corr_um_rhs": {"impute": kernels["corr_um_rhs"],
                         "qcat": qcat_checks["corr_um_rhs"]},
+        "cholesky_solve": {"impute": kernels["cholesky_solve"],
+                           "qcat": qcat_checks["cholesky_solve"]},
         "impute_finalize": {"impute": kernels["impute_finalize"]},
     }
     # the later paths' own batches (runner chunks, one window, a streamed

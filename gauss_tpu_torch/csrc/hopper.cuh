@@ -1,6 +1,7 @@
 // Device helpers shared by the Hopper kernels (gram.cu, probe7_int4.cu,
-// region_tail.cu): mbarriers, cluster barriers, TMA loads and stores,
-// wgmma s8 and the encoding of TMA tensor maps.  Each translation unit gets its own copy (anonymous
+// region_tail.cu, chol_solve.cu): TF32 rounding, the shared-memory opt-in,
+// mbarriers, cluster barriers, TMA loads and stores, wgmma s8 and the
+// encoding of TMA tensor maps.  Each translation unit gets its own copy (anonymous
 // namespace); nothing here launches a kernel.
 
 #pragma once
@@ -13,6 +14,30 @@ namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// x rounded to TF32 (10 mantissa bits, to nearest, ties away), as the
+// tensor cores round a float32 operand
+__device__ __forceinline__ float tf32_round(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+// a product's operand: TF32-rounded when the caller's matmul switch is on
+template <bool kTF32>
+__device__ __forceinline__ float opnd(float x) {
+  if constexpr (kTF32) return tf32_round(x);
+  return x;
+}
+
+// above 48 KB of shared memory (static included) a kernel must opt in;
+// the attribute is per device, so it is set before every launch
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes) {
+  if (bytes <= 40 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {

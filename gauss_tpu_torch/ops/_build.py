@@ -87,6 +87,11 @@ _SIGNATURES = {
     "gauss_region_finalize": [_P, ctypes.c_longlong, ctypes.c_longlong, _P,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _P, _P],
+    # chol_solve: (A, Y, dpart, info, W, Mp, K, want_l, tf32, stream)
+    "gauss_chol_solve": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    # (solve)
+    "gauss_chol_solve_smem": [ctypes.c_int],
 }
 
 

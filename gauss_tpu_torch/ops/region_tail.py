@@ -1,10 +1,10 @@
 """The region tails' hand kernels: the CalWgtCov correlation blocks, the
-triangular solve's right-hand side, and z / info.
+triangular solve's right-hand side, the Cholesky factorization and forward
+solve, and z / info.
 
 After K1 (``ops/gram.py``) a resident region kernel (``ops/window_kernel``)
-turns each window's Grams into correlation blocks and solves them with the
-library's Cholesky and triangular solve.  ``csrc/region_tail.cu`` does the
-work around those calls:
+turns each window's Grams into correlation blocks and solves them.
+``csrc/region_tail.cu`` makes the blocks and reads the solve's output:
 
 - ``corr_mm``: the measured block B11 [B, Mp, Mp] (impute, qcat and LD),
   with the rows' std and weighted means that the next block needs;
@@ -13,20 +13,28 @@ work around those calls:
 - ``impute_finalize``: (z, info) [2, B, Up] from the solve's output, NaN
   where a window's factorization failed (impute).
 
+``csrc/chol_solve.cu`` solves them:
+
+- ``cholesky_solve``: B11 = L L^T and Y = L^-1 [B21^T | Z1], with
+  cholesky_ex's info, written over B11 and the right-hand side (impute;
+  qcat also takes L).
+
 No Pallas kernel corresponds to them: gauss_tpu leaves this work to XLA at
-Precision.HIGHEST (``gauss_tpu/ops/window_kernel.py:_resident_block_builder``
-and the tail of its ``build_resident_region_kernel``).  Each wrapper
-launches its kernel for CUDA tensors and runs its plain PyTorch version,
-the torch code the kernel replaced, for CPU tensors only.  The kernel's
-B11 is exactly symmetric and its right-hand side column-major (the solve's
-own layout); the plain versions give the same values, B11 symmetric to an
-ulp and the right-hand side row-major.
+Precision.HIGHEST (``gauss_tpu/ops/window_kernel.py:_resident_block_builder``,
+``_blocked_cholesky_lower``, ``_blocked_trsm_lower`` and the tail of its
+``build_resident_region_kernel``).  Each wrapper launches its kernel for
+CUDA tensors and runs its plain PyTorch version, the torch code the kernel
+replaced, for CPU tensors only.  The kernel's B11 is exactly symmetric and
+its right-hand side column-major (the solve's own layout); the plain
+versions give the same values, B11 symmetric to an ulp and the right-hand
+side row-major.
 
 TF32: the plain versions' sums over populations and rows are torch
 matmuls, which round their operands to TF32 when
 ``torch.backends.cuda.matmul.allow_tf32`` is on.  Each wrapper reads that
-switch when it queues its kernel, which then rounds the same operands.  The
-resident kernels call these under ``full_f32_matmul``: full f32.
+switch when it queues its kernel, which then rounds the same operands
+(``cholesky_solve``: its tile products' L and Y tiles).  The resident
+kernels call these under ``full_f32_matmul``: full f32.
 """
 
 from __future__ import annotations
@@ -40,7 +48,8 @@ from . import _build, gram
 #: rows per tile side of the kernels: Mp and Up must be multiples
 TILE = 64
 #: kernel launches since the counts were last set to 0 (CUDA path only)
-launches = {"corr_mm": 0, "corr_um_rhs": 0, "impute_finalize": 0}
+launches = {"corr_mm": 0, "corr_um_rhs": 0, "impute_finalize": 0,
+            "cholesky_solve": 0}
 
 
 def _slice_rows(A: torch.Tensor, offs: torch.Tensor, n: int) -> torch.Tensor:
@@ -120,6 +129,14 @@ def impute_finalize_plain(Yall, bad):
     z = z2 / torch.sqrt(info)
     failed = bad != 0
     return torch.stack((_nan_where(failed, z), _nan_where(failed, info)))
+
+
+def cholesky_solve_plain(B11, rhs, want_l=False):
+    """Plain PyTorch version of ``cholesky_solve``: the library pair it
+    replaced (cholesky_ex reads B11's lower triangle)."""
+    L, info = torch.linalg.cholesky_ex(B11)
+    Y = torch.linalg.solve_triangular(L, rhs, upper=False)
+    return Y, (L if want_l else None), info
 
 
 def _check(name, tensors, dtypes=None):
@@ -289,3 +306,50 @@ def impute_finalize(Yall: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
     _build.check(err, "impute_finalize")
     launches["impute_finalize"] += 1
     return out
+
+
+def cholesky_solve(B11: torch.Tensor, rhs: torch.Tensor, want_l: bool = False):
+    """(Y, L or None, info) of a slab of B windows: B11 = L L^T from B11's
+    lower triangle [B, Mp, Mp], Y = L^-1 rhs [B, Mp, K], info int32 [B] as
+    cholesky_ex gives it (0, or the 1-based index of the first pivot that
+    is not positive or is NaN).  L, lower triangular with a zero strict
+    upper triangle, only when ``want_l``.
+
+    On CUDA both are written in place (the only scratch is two 64 x 64
+    tiles a window): Y over rhs, which must be column-major in each window
+    as ``corr_um_rhs`` returns it (strides (K Mp, 1, Mp)), and L over B11
+    (contiguous; without ``want_l`` only its lower triangle is meaningful
+    afterwards); a window whose factorization failed has unspecified Y and
+    L.  Callers take the returned tensors and treat B11 and rhs as
+    consumed.  The factorization runs on a stream of the kernel library's
+    own, ordered with the current stream by events; the current stream
+    ends behind all of the work, and nothing waits on the host.  CPU
+    tensors take the plain version."""
+    dev = _check("cholesky_solve", (B11, rhs))
+    if dev.type == "cpu":
+        return cholesky_solve_plain(B11, rhs, want_l)
+    lib = _kernel_device("cholesky_solve", dev, (B11,))
+    if B11.dim() != 3 or rhs.dim() != 3:
+        raise ValueError("cholesky_solve: B11 and rhs must be [B, Mp, .]")
+    B, Mp, K = rhs.shape
+    _tiles("cholesky_solve", Mp)
+    if B11.shape != (B, Mp, Mp) or K < 1:
+        raise ValueError("cholesky_solve: inconsistent shapes "
+                         f"{tuple(B11.shape)}, {tuple(rhs.shape)}")
+    if rhs.stride() != (K * Mp, 1, Mp):
+        raise ValueError("cholesky_solve: rhs must be column-major in each "
+                         f"window (strides {tuple(rhs.stride())})")
+    if B11.data_ptr() % 16 or rhs.data_ptr() % 16:
+        raise ValueError("cholesky_solve: B11 and rhs must be 16-byte "
+                         "aligned")
+    info = torch.empty((B,), dtype=torch.int32, device=dev)
+    dpart = torch.empty((2, B, TILE, TILE), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = lib.gauss_chol_solve(
+            B11.data_ptr(), rhs.data_ptr(), dpart.data_ptr(),
+            info.data_ptr(), B, Mp, K,
+            int(want_l), int(torch.backends.cuda.matmul.allow_tf32),
+            _stream(dev))
+    _build.check(err, "cholesky_solve")
+    launches["cholesky_solve"] += 1
+    return rhs, (B11 if want_l else None), info

@@ -343,10 +343,7 @@ class _ResidentBlocks:
         rhs = region_tail.corr_um_rhs(
             t1_um, Spu, Muu, Vu, u_t0, Spm, Mum, m_t0, std_m, mi_m, u_mask,
             m_mask, z1, *self.weights(Spm.device))
-        # B11 is symmetric (exactly so from the kernel): its transpose is the
-        # same matrix in the column-major layout that the library's
-        # Cholesky copies its input into, so that copy is a straight one
-        return B11.transpose(1, 2), rhs
+        return B11, rhs
 
 
 def _by_slab(W: int, step, dim: int = 0) -> torch.Tensor:
@@ -363,15 +360,14 @@ def _by_slab(W: int, step, dim: int = 0) -> torch.Tensor:
 
 def _impute_tail(B11: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """[2, W, Up] (z, info) from the blocks: one Cholesky and ONE
-    triangular solve on rhs = [B21^T | Z1]; info = colsum((L^-1 B21^T)^2)
-    and z = (L^-1 B21^T)^T (L^-1 Z1) / sqrt(info) (region_tail's
-    impute_finalize).
+    triangular solve on rhs = [B21^T | Z1] (region_tail's cholesky_solve,
+    in place of both on the card); info = colsum((L^-1 B21^T)^2) and z =
+    (L^-1 B21^T)^T (L^-1 Z1) / sqrt(info) (region_tail's impute_finalize).
 
-    cholesky_ex does not synchronize with the host (cholesky does).  A
-    window whose factorization fails (info > 0) gets NaN z and info, as
-    the reference device path's Cholesky returns NaN; nothing raises."""
-    L, bad = torch.linalg.cholesky_ex(B11)
-    Yall = torch.linalg.solve_triangular(L, rhs, upper=False)
+    Nothing synchronizes with the host.  A window whose factorization
+    fails (info > 0) gets NaN z and info, as the reference device path's
+    Cholesky returns NaN; nothing raises."""
+    Yall, _, bad = region_tail.cholesky_solve(B11, rhs)
     return region_tail.impute_finalize(Yall, bad)
 
 
@@ -590,16 +586,16 @@ def _qcat_tail(B11: torch.Tensor, rhs: torch.Tensor,
     window's measured and unmeasured SNPs (src/qcat.cpp:202-246).
 
     One Cholesky B11 = L L^T and one triangular solve on rhs =
-    [B21^T | Z1] give Xu = L^-1 B21^T and Zt = L^-1 Z1; the decorrelated
-    measured columns L^-1 B11 are L^T itself.  num_eig is the measured
+    [B21^T | Z1] (region_tail's cholesky_solve, L kept) give Xu =
+    L^-1 B21^T and Zt = L^-1 Z1; the decorrelated measured columns
+    L^-1 B11 are L^T itself.  num_eig is the measured
     count: the reference's CountPC(B11, eig_cutoff) equals it whenever
     lambda > eig_cutoff (every eigenvalue of R + lambda*I is >= lambda),
     which the kernel's constructor enforces.  A window whose factorization
     fails gets NaN tests."""
     Up = rhs.shape[2] - 1
     n = m_mask.sum(dim=1)
-    L, bad = torch.linalg.cholesky_ex(B11)
-    Yall = torch.linalg.solve_triangular(L, rhs, upper=False)
+    Yall, L, bad = region_tail.cholesky_solve(B11, rhs, want_l=True)
     Zt = Yall[:, :, Up]
     scale2 = torch.clamp(n - 3.0, min=0.0)[:, None]
     tests = []

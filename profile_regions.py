@@ -9,10 +9,12 @@ C calls, each ending in a synchronize, after one warm-up call:
 
 - the region functions alone on their cached batch: impute, qcat, LD
   "i16tri" and LD "f32" (device work only, no host assembly);
-- the library's solves alone, cholesky_ex and solve_triangular on the
-  impute batch's own blocks (B11 and [B21^T | Z1] as the region function
-  hands them over), so that the region's kernels can be told apart from
-  the library's;
+- the impute solves alone on the batch's own blocks (B11 and
+  [B21^T | Z1] as the region function hands them over): the port's
+  kernel (region_tail.cholesky_solve, on fresh copies: it writes over
+  its inputs, and the copies show as their own kernels) and, beside it,
+  the library pair it replaced (cholesky_ex and solve_triangular), so
+  that both breakdowns by kernel name come from one tree;
 - the entry points ld_region ("i16tri", "f32"), qcat_region,
   impute_region, and impute_regions over 4 passes with 2 in flight.
 
@@ -51,6 +53,7 @@ from chip_smoke import (CACHE, MEASURED_FRAC, WINDOW_BP,      # noqa: E402
                         WING_BP, phase_build, phase_device)
 from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            _copy_to_host, _fetch_flat)
+from gauss_tpu_torch.ops import region_tail                    # noqa: E402
 from gauss_tpu_torch.ops.window_kernel import (                # noqa: E402
     _ResidentBlocks, full_f32_matmul)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,    # noqa: E402
@@ -192,15 +195,25 @@ def main():
                                    b.Mp, b.Up)(*b.arrays, m_t0, u_t0, Z1,
                                                m_mask, u_mask)
 
-    def solves():
+    Bk, Rk = B11.clone(), rhs.clone()
+
+    def kernel_solves():
+        with full_f32_matmul():
+            Bk.copy_(B11)
+            Rk.copy_(rhs)
+            return region_tail.cholesky_solve(Bk, Rk)
+
+    def library_solves():
         with full_f32_matmul():
             L = torch.linalg.cholesky_ex(B11)[0]
             return torch.linalg.solve_triangular(L, rhs, upper=False)
 
     paths = [
         ("impute region fn", lambda: imp(*b.arrays, *b.inputs, *b.compact)),
-        ("impute solves alone (cholesky_ex + solve_triangular on its "
-         "blocks)", solves),
+        ("impute solves alone: cholesky_solve (with the copies of its "
+         "inputs)", kernel_solves),
+        ("impute solves alone: the library pair (cholesky_ex + "
+         "solve_triangular on its blocks)", library_solves),
         ("qcat region fn", lambda: qc(*b.arrays, *b.inputs)),
         ("LD i16tri region fn", lambda: ld["i16tri"][0](*ld["i16tri"][1])),
         ("LD f32 region fn", lambda: ld["f32"][0](*ld["f32"][1])),

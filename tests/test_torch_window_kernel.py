@@ -417,7 +417,7 @@ def test_cuda_tensors_never_fall_back(monkeypatch):
 
     monkeypatch.setattr(_build, "library", refuse)
     for name in ("corr_mm_plain", "corr_um_rhs_plain",
-                 "impute_finalize_plain"):
+                 "impute_finalize_plain", "cholesky_solve_plain"):
         monkeypatch.setattr(region_tail, name, plain)
     try:
         mode = fake_mode.FakeTensorMode()
@@ -433,6 +433,8 @@ def test_cuda_tensors_never_fall_back(monkeypatch):
             c["Mum"], c["m_t0"], c["m_mask"], c["m_mask"], c["u_mask"],
             c["m_mask"], c["z1"], c["alpha"], c["w"])
         yield lambda: region_tail.impute_finalize(Yall, bad)
+        yield lambda: region_tail.cholesky_solve(c["t1_mm"], Yall)
+        yield lambda: region_tail.cholesky_solve(c["t1_mm"], Yall, True)
 
     def on(d):
         new = lambda v: torch.empty_strided(v.shape, v.stride(),
@@ -484,14 +486,16 @@ def test_region_tail_kernels_match_plain_on_gpu(weighted, shape):
         for k in region_tail.launches:
             region_tail.launches[k] = 0
         B11, std_m, mi_m, rhs = _tail_calls(c)
-        zi = twk._impute_tail(B11, rhs)
+        # the tail solves in place: it gets copies, the blocks stay
+        zi = twk._impute_tail(B11.clone(), rhs.clone())
         launched = dict(region_tail.launches)
         p11, pstd, pmi, prhs = _plain_calls(c)
         L, bad = torch.linalg.cholesky_ex(p11)
         pz = region_tail.impute_finalize_plain(
             torch.linalg.solve_triangular(L, prhs, upper=False), bad)
     torch.cuda.synchronize()
-    assert launched == {"corr_mm": 1, "corr_um_rhs": 1, "impute_finalize": 1}
+    assert launched == {"corr_mm": 1, "corr_um_rhs": 1, "impute_finalize": 1,
+                        "cholesky_solve": 1}
     assert torch.equal(B11, B11.transpose(1, 2))
     np.testing.assert_allclose(B11.cpu().numpy(), p11.cpu().numpy(),
                                atol=1e-5)
@@ -540,11 +544,11 @@ def test_region_tail_kernels_follow_the_tf32_switch_on_gpu():
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
         f32 = _tail_calls(c)
-        z32 = twk._impute_tail(f32[0], f32[3])
+        z32 = twk._impute_tail(f32[0].clone(), f32[3].clone())
         plain = _plain_calls(c)
         torch.backends.cuda.matmul.allow_tf32 = True
         tf = _tail_calls(c)
-        ztf = twk._impute_tail(tf[0], tf[3])
+        ztf = twk._impute_tail(tf[0].clone(), tf[3].clone())
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
     real = c["u_mask"] > 0
