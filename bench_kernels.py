@@ -4,6 +4,7 @@ card at the main path's and the probe's shapes, beside another build of
 the same kernels and one PyTorch call for the same work.
 
     python3 bench_kernels.py [--other DIR] [--reps N] [--out FILE]
+                             [--solve-only]
 
 Inputs are made on the card from a seed at the bench region's shapes: 43
 windows over the 33KG subject layout (29 populations, 33,153 subjects,
@@ -26,13 +27,16 @@ each population padded to 64 columns: S = 34,176):
   device alone (chip_smoke.device_ms: a call's host path is longer than
   its device work);
 - cholesky_solve (ops/region_tail) at Mp = 1280, K = 961 over W = 43
-  windows (the region slab), 7 (a runner chunk) and 1 (the device
-  impute_window): B11 the correlations over 640 subjects of AR(1) rows
-  (rho 0.8) with the ridge 1.1 on the diagonal, the right-hand side their
-  correlations with 960 more rows and a z column; beside the library pair
-  cholesky_ex + solve_triangular, both against a float64 solve (normwise),
-  timed on fresh copies of its inputs (it solves in place).  Not timed
-  against --other.
+  windows (the region slab), 7 (a runner chunk) and 1, and at W = 1, K =
+  897 (the device impute_window's own shape): B11 the correlations over
+  640 subjects of AR(1) rows (rho 0.8) with the ridge 1.1 on the diagonal,
+  the right-hand side their correlations with K - 1 more rows and a z
+  column; beside the library pair cholesky_ex + solve_triangular in the
+  same run, both against a float64 solve (normwise), timed on fresh copies
+  of its inputs (it solves in place), with its bound: 3 FLOP at the TF32
+  peak (the kernel's 3xTF32 products, chip_smoke.solve_bounds), the f32
+  and byte figures beside.  Not timed against --other.  --solve-only
+  times it alone.
 
 For each it prints the kernel's time (CUDA events, median of --reps after
 a warm-up), its bound (chip_smoke.bound: operations at the int8 peak or
@@ -60,8 +64,8 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from chip_smoke import (bound, cuda_ms, cuda_ms_fresh,        # noqa: E402
-                        device_ms, f32_bound, k1_bound, k1_library_ms,
-                        log, normwise, phase_build, phase_device)
+                        device_ms, k1_bound, k1_library_ms, log, normwise,
+                        phase_build, phase_device, solve_bounds)
 from gauss_tpu_torch.core.stats import full_f32_matmul         # noqa: E402
 from gauss_tpu_torch.ops import _build, gather, gram           # noqa: E402
 from gauss_tpu_torch.ops import region_tail                    # noqa: E402
@@ -252,10 +256,11 @@ def solve_blocks(dev, g, nw, Mp=1280, Up=960, n=640, rho=0.8):
 
 
 def bench_solve(dev, g, reps):
-    """cholesky_solve at W = 43, 7 and 1 beside the library pair."""
+    """cholesky_solve at W = 43, 7 and 1 (K = 961) and at W = 1, K = 897
+    beside the library pair."""
     out = {}
-    for nw in (W, 7, 1):
-        B11, rhs = solve_blocks(dev, g, nw)
+    for nw, Up in ((W, 960), (7, 960), (1, 960), (1, 896)):
+        B11, rhs = solve_blocks(dev, g, nw, Up=Up)
         Bk, Rk = B11.clone(), rhs.clone()
         nb, Mp, K = rhs.shape
         with full_f32_matmul():
@@ -276,15 +281,17 @@ def bench_solve(dev, g, reps):
                 Bk, Rk), reps)
             lib_ms = cuda_ms(lambda: region_tail.cholesky_solve_plain(
                 B11, rhs), reps)
-        b_ms, b_by = f32_bound(nw * (Mp ** 3 / 3 + Mp * Mp * K),
-                               4 * (nw * Mp * (Mp + 1) // 2 + 2 * nw * Mp * K))
-        out[f"W={nw}"] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by,
-                              library_ms=lib_ms, err_f64=acc,
-                              library_err_f64=lib_acc)
+        t_ms, f_ms, b_ms, gflop, mb = solve_bounds(nw, Mp, K, False)
+        out[f"W={nw} K={K}"] = dict(
+            ms=ms, bound_ms=t_ms, bound_by="operations", f32_bound_ms=f_ms,
+            bytes_bound_ms=b_ms, share_of_bound=t_ms / ms, library_ms=lib_ms,
+            err_f64=acc, library_err_f64=lib_acc)
         log(f"cholesky_solve W={nw} Mp={Mp} K={K}: {ms:.3f} ms, bound "
-            f"{b_ms:.3f} ms ({b_by}) = {b_ms / ms:.1%}; the library pair "
-            f"{lib_ms:.3f} ms; normwise against float64 {acc:.3e}, the "
-            f"pair's {lib_acc:.3e}")
+            f"{t_ms:.3f} ms (3 x {gflop:.2f} GFLOP at the TF32 peak) = "
+            f"{t_ms / ms:.1%}; f32 bound {f_ms:.3f} ms = {f_ms / ms:.1%}, "
+            f"bytes {b_ms:.3f} ms ({mb:.1f} MB); the library pair "
+            f"{lib_ms:.3f} ms ({lib_ms / ms:.2f}x the kernel); normwise "
+            f"against float64 {acc:.3e}, the pair's {lib_acc:.3e}")
         del B11, rhs, Bk, Rk
         torch.cuda.empty_cache()
     return out
@@ -296,10 +303,17 @@ def main():
                                     "kernels are timed in turns")
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--out", help="also write the results as JSON here")
+    ap.add_argument("--solve-only", action="store_true",
+                    help="time cholesky_solve alone")
     args = ap.parse_args()
 
     dev, name = phase_device()
     phase_build()
+    if args.solve_only:
+        g = torch.Generator(device=dev).manual_seed(0)
+        emit({"device": name,
+              "cholesky_solve": bench_solve(dev, g, args.reps)}, args.out)
+        return
     other = build_other(args.other) if args.other else None
     g = torch.Generator(device=dev).manual_seed(0)
     sizes = tuple(n for _, n, _ in POPS_33KG)
@@ -384,10 +398,15 @@ def main():
     results["k3"] = bench_k3(dev, g, other, args.reps)
     results["k4"] = bench_k4(dev, other)
     results["cholesky_solve"] = bench_solve(dev, g, args.reps)
+    emit(results, args.out)
+
+
+def emit(results, out):
+    """The results as one JSON line, and into ``out`` when given."""
     print(json.dumps(results), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
+    if out:
+        os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+        with open(out, "w") as f:
             json.dump(results, f, indent=1)
 
 

@@ -32,14 +32,20 @@ Phases (each prints its evidence; any failure exits non-zero):
               cholesky_solve on those blocks (info equal, Y normwise
               within SOLVE_TOL of the library pair cholesky_ex +
               solve_triangular, its plain version, and no less accurate
-              than SOLVE_ACC x that pair against a float64 solve),
-              impute_finalize on the kernel's solve (z and info within
-              FINAL_RTOL), each under full_f32_matmul, timed beside its
-              bound (bytes at the HBM rate or f32 operations at 67
-              TFLOP/s) and its plain version, the torch passes it
-              replaced (for cholesky_solve the library pair, also its
-              library_ms); one profiled region call must run the solve's
-              three kernels and no kernel of the library's potrf / trsm.
+              than SOLVE_ACC x that pair against a float64 solve; then
+              the same slab with window 1 indefinite at a middle pivot
+              and window 2 NaN at another: the call returns, info names
+              those pivots, the other windows bit-equal to the slab
+              without them), impute_finalize on the kernel's solve (z
+              and info within FINAL_RTOL), each under full_f32_matmul,
+              timed beside its bound (bytes at the HBM rate or f32
+              operations at 67 TFLOP/s; for cholesky_solve its 3xTF32
+              products, 3 FLOP at the TF32 peak of 495 TFLOP/s, with the
+              f32 and byte figures beside) and its plain version, the
+              torch passes it replaced (for cholesky_solve the library
+              pair, also its library_ms); one profiled region call must
+              run the solve's one kernel and no kernel of the library's
+              potrf / trsm.
 5. parity  -- the first window against the port's float64 window path
               (its correlation blocks on the card, its solve on the
               host): max|dZ| <= 1e-4 on imputed rows, measured rows
@@ -308,9 +314,10 @@ SOLVE_TOL = 1e-5         # cholesky_solve against the library pair, Y and L
                          # blocked differently
 SOLVE_ACC = 2.0          # its error against a float64 solve of the same
                          # inputs, at most this times the library pair's
-# published peaks of one H100 SXM (dense int8 tensor-core rate, f32 outside
-# the tensor cores, HBM3 rate)
+# published peaks of one H100 SXM (dense int8 and TF32 tensor-core rates,
+# f32 outside the tensor cores, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
+TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 #: the region tail's kernels, their sources and the reference code they
@@ -512,10 +519,11 @@ def phase_build():
             log(f"{name} tile pass at P={P}{' pooled' if pooled else ''}: "
                 f"dynamic shared memory {smem} bytes per block, "
                 f"{stages.value} ring stages, {groups} consumer groups")
-    lib = _build.library()
-    log(f"cholesky_solve: dynamic shared memory {lib.gauss_chol_solve_smem(0)}"
-        f" bytes per factorization block, {lib.gauss_chol_solve_smem(1)} per "
-        f"solve block")
+    per_sm = ctypes.c_int(0)
+    smem = _build.library().gauss_chol_solve_smem(ctypes.byref(per_sm))
+    log(f"cholesky_solve: dynamic shared memory {smem} bytes per block "
+        f"(a 3-stage ring of 32 k chunks: A's and B's boxes, B's lo), "
+        f"{per_sm.value} blocks per SM")
 
 
 def phase_main(dev, n_snps):
@@ -711,6 +719,21 @@ def f32_bound(flops, n_bytes):
                                                                "bytes")
 
 
+def solve_bounds(B, Mp, K, want_l):
+    """cholesky_solve's bounds on one slab: (tensor ms, f32 ms, bytes ms,
+    GFLOP, MB).  FLOP B (Mp^3 / 3 + Mp^2 K); the kernel does each product
+    as three TF32 products on the tensor cores (3xTF32), so its bound is
+    3 FLOP at the TF32 peak, with the same FLOP at the f32 peak outside
+    the tensor cores and the bytes (B11's lower triangle and rhs read, Y,
+    and with want_l L, written) at the HBM rate beside it."""
+    flops = B * (Mp ** 3 / 3 + Mp * Mp * K)
+    n_bytes = 4 * (B * Mp * (Mp + 1) // 2 + 2 * B * Mp * K
+                   + (B * Mp * Mp if want_l else 0))
+    return (3 * flops / TF32_FLOPS_PER_S * 1e3,
+            flops / FP32_FLOPS_PER_S * 1e3,
+            n_bytes / HBM_BYTES_PER_S * 1e3, flops / 1e9, n_bytes / 1e6)
+
+
 def tail_check(label, kernel, plain, args, err, tol, n_bytes, flops,
                earlier=None, reps=5):
     """One region-tail kernel against its plain version (the torch passes
@@ -862,9 +885,10 @@ def solve_check(label, B11, rhs, want_l, reps=5):
     same f32 inputs, the kernel within SOLVE_ACC times the library's
     error.  Timed (CUDA events around the kernel alone, fresh copies of
     its inputs queued before each call) beside the library pair, which is
-    both plain_ms and library_ms, and the FLOP bound: B (Mp^3 / 3 +
-    Mp^2 K) at the f32 peak; bytes B11's lower triangle and rhs read, Y
-    (and L) written."""
+    both plain_ms and library_ms, and its bounds (solve_bounds): the
+    tensor bound, 3 B (Mp^3 / 3 + Mp^2 K) FLOP at the TF32 peak (bound_ms),
+    with the same FLOP at the f32 peak and the bytes beside it.  Then
+    solve_fail_check on the same slab."""
     B, Mp, K = rhs.shape
     with full_f32_matmul():
         Bk, Rk = B11.clone(), rhs.clone()
@@ -890,33 +914,67 @@ def solve_check(label, B11, rhs, want_l, reps=5):
             Bk, Rk, want_l), reps)
         pms = cuda_ms(lambda: region_tail.cholesky_solve_plain(
             B11, rhs, want_l), reps)
-    flops = B * (Mp ** 3 / 3 + Mp * Mp * K)
-    n_bytes = 4 * (B * Mp * (Mp + 1) // 2 + 2 * B * Mp * K
-                   + (B * Mp * Mp if want_l else 0))
-    b_ms, b_by = f32_bound(flops, n_bytes)
+    t_ms, f_ms, b_ms, gflop, mb = solve_bounds(B, Mp, K, want_l)
     log(f"{label} cholesky_solve (B={B}, Mp={Mp}, K={K}, want_l={want_l}; "
         f"info equal={same_info}, {int((info != 0).sum())} failed): "
         f"normwise err {err:.3e} against the library pair (tol "
         f"{SOLVE_TOL:g}); against float64 {acc:.3e}, the library's "
         f"{lib_acc:.3e} ({acc / lib_acc:.2f}x, limit {SOLVE_ACC:g}x); "
-        f"kernel {ms:.3f} ms,"
-        f" bound {b_ms:.3f} ms ({b_by}: {flops / 1e9:.2f} GFLOP f32, "
-        f"{n_bytes / 1e6:.1f} MB) = {b_ms / ms:.1%} of bound; the library "
-        f"pair (plain, library_ms) {pms:.3f} ms; 1 launch per slab")
+        f"kernel {ms:.3f} ms, bound {t_ms:.3f} ms (operations: 3 x "
+        f"{gflop:.2f} GFLOP at the TF32 peak, 3xTF32) = {t_ms / ms:.1%} of "
+        f"bound; f32 bound {f_ms:.3f} ms = {f_ms / ms:.1%}, bytes "
+        f"{b_ms:.3f} ms ({mb:.1f} MB); the library pair (plain, "
+        f"library_ms) {pms:.3f} ms; 1 launch per slab")
     del Bk, Rk
     torch.cuda.empty_cache()
     if not (same_info and err <= SOLVE_TOL and acc <= SOLVE_ACC * lib_acc):
         raise AssertionError(f"{label} cholesky_solve disagrees with its "
                              f"plain version")
-    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=b_ms,
-                bound_by=b_by, library_ms=pms, err_f64=acc,
+    solve_fail_check(label, B11, rhs, want_l)
+    return dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=t_ms,
+                bound_by="operations", f32_bound_ms=f_ms,
+                bytes_bound_ms=b_ms, library_ms=pms, err_f64=acc,
                 library_err_f64=lib_acc)
 
 
-#: the kernels cholesky_solve launches (the factorization's two steps, the
-#: forward solve)
-SOLVE_KERNELS = ("chol_diag_kernel", "chol_panel_kernel",
-                 "forward_solve_kernel")
+def solve_fail_check(label, B11, rhs, want_l):
+    """cholesky_solve on one slab with window 1 made indefinite at a middle
+    pivot and window 2's pivot at 3/4 made NaN: the call returns, info is
+    those pivots' 1-based indices and 0 elsewhere, and every other
+    window's Y (and L) is bit-equal to the same slab's without the bad
+    windows."""
+    B, Mp, _ = rhs.shape
+    if B < 3:
+        raise AssertionError(f"{label}: a slab of {B} windows is too narrow "
+                             f"for the failed-window check")
+    p, q = Mp // 2 + 5, 3 * Mp // 4 + 7
+    bad = B11.clone()
+    bad[1, p, p] = -1.0
+    bad[2, q, q] = float("nan")
+    with full_f32_matmul():
+        Y, L, info = region_tail.cholesky_solve(B11.clone(), rhs.clone(),
+                                                want_l)
+        bY, bL, binfo = region_tail.cholesky_solve(bad, rhs.clone(), want_l)
+        torch.cuda.synchronize()
+    want = [0] * B
+    want[1], want[2] = p + 1, q + 1
+    ok = torch.ones(B, dtype=torch.bool, device=rhs.device)
+    ok[1:3] = False
+    same = torch.equal(bY[ok], Y[ok]) and (
+        not want_l or torch.equal(bL[ok], L[ok]))
+    log(f"{label} cholesky_solve with failed windows (window 1 indefinite "
+        f"at pivot {p + 1}, window 2 NaN at pivot {q + 1}): returned, info "
+        f"{binfo[:3].tolist()} (expected {want[:3]}), the other {B - 2} "
+        f"windows bit-equal to the slab without them: {same}")
+    if binfo.tolist() != want or info.tolist() != [0] * B or not same:
+        raise AssertionError(f"{label}: cholesky_solve with failed windows "
+                             f"gave other info or other results")
+    del Y, L, bY, bL, bad
+    torch.cuda.empty_cache()
+
+
+#: the kernel cholesky_solve launches (one persistent launch a slab)
+SOLVE_KERNELS = ("chol_solve_kernel",)
 
 
 def no_library_solve(label, fn):

@@ -20,236 +20,118 @@
 //
 // Both are written in place: L over B11's lower triangle (the diagonal
 // tiles' strict upper triangle zeroed; with want_l the strict upper
-// triangle everywhere), Y over rhs; the only scratch is two 64 x 64 tiles
-// a window.  A window whose factorization failed stops there: its L and Y
-// are unspecified (the callers set its results to NaN from info).
+// triangle everywhere), Y over rhs; the only scratch is the int32 progress
+// counters the wrapper zeroes (info among them).  A window whose
+// factorization failed stops there: its L and Y are unspecified (the
+// callers set its results to NaN from info).
 //
-// What bounds it on this card: f32 FMAs.  At the main path's shape (W = 43
-// windows, Mp = 1280, K = Up + 1 = 961) the factorization is W Mp^3 / 3 =
-// 30.1 GFLOP and the solve W Mp^2 K = 67.7 GFLOP: ~1.46 ms at the 67 TFLOP/s
-// of f32 outside the tensor cores.  The bytes (B11's lower triangle and the
-// right-hand side read, Y written, ~0.56 GB) take ~0.17 ms at 3.35 TB/s.
+// What bounds it on this card: the tile products are ~all of the work.  At
+// the main path's shape (W = 43 windows, Mp = 1280, K = Up + 1 = 961) the
+// factorization is W Mp^3 / 3 = 30.1 GFLOP and the solve W Mp^2 K = 67.7
+// GFLOP.  On the tensor cores in 3xTF32 (three TF32 products for each f32
+// one, below) that is 293 GFLOP at 495 TFLOP/s: 0.593 ms; at the f32 rate
+// outside the tensor cores 1.459 ms.  The bytes (B11's lower triangle and
+// the right-hand side read, Y written, ~0.56 GB) take ~0.17 ms at 3.35 TB/s.
 //
-// What the design does about it.  Everything works on 64 x 64 tiles, held
-// by 128 threads as 8 rows x 4 columns each (rows 8 tr + i, columns
-// tc + 16 e), in registers:
-//  * the factorization is left-looking by 64-wide block columns, two
-//    launches per block column j, queued back to back with no host sync.
-//    The diagonal step (a block a window) factors D_jj = Dpart_j -
-//    L_j,j-1 L_j,j-1^T in shared memory.  The panel step's block (w, i)
-//    forms C = A_ij - L_i,<j L_j,<j^T (a tile product of depth 64 j) and
-//    solves L_ij = C L_jj^-T; one more block a window forms the next
-//    diagonal tile's partial sum Dpart_j+1 = A_j+1,j+1 - L_j+1,<j
-//    L_j+1,<j^T, so every block does one product of the same depth and
-//    the diagonal step's own product is 64 deep;
-//  * the forward solve is one launch per row block j over (64-column tile
-//    of rhs, window), no dependency between the blocks of a launch:
-//    Y_j = L_jj^-1 (R_j - L_j,<j Y_<j), reading back Y_<j.  Solve launch
-//    j waits (an event) only for diagonal step j; the factorization runs
-//    on a stream of its own at the device's highest priority, so the
-//    solve's row blocks fill the card beside its narrow last launches;
-//  * the tile products, ~all of the FMAs, run from shared memory: both
-//    operands' 64 rows x 32 k of a chunk land by cp.async (16 bytes a
-//    thread, zero-filled past the last column) in a double-buffered ring,
-//    read as float4 along k; each thread does 8 x 4 x 4 FMAs per 12
-//    16-byte loads, without bank conflicts (rows 36 floats apart);
-//  * the in-tile triangular steps keep the tile in registers and take few
-//    barriers: the substitutions (the solve's, and the panel's posed as
-//    L_jj L_ij^T = C^T) go by blocks of 8 rows, each solved by the 16
-//    threads that hold it and then taken off the later rows (8 barriers a
-//    tile); the 64 x 64 factorization pivot by pivot (the pivot's column
-//    published, one barrier, every thread updating its 32 elements: a
-//    blocked one, a warp factoring each 8-column block with shuffles, took
-//    longer).  One reciprocal square root per pivot, correctly rounded
-//    (__frsqrt_rn, __frcp_rn: no branch to nvcc's slow IEEE paths), and
-//    LAPACK's scaling by it;
-//  * accuracy: the running tile of a product starts as the input tile, and
-//    each 64 k of products is summed apart and taken off it with Kahan's
-//    compensation (tile_product), which keeps the kernel within ~1.5x of
-//    the library pair's distance from a float64 solve (PERF.md);
-//  * TF32: with torch.backends.cuda.matmul.allow_tf32 on, the wrapper asks
-//    for the tile products' operands (the L and Y tiles) to be rounded to
-//    TF32 as they land in shared memory; the triangular steps stay f32.
+// What the design does about it:
+//  * one persistent launch a slab.  The work is cut into 64 x 64 tile
+//    tasks: diagonal (w, j), L_jj = chol(A_jj - L_j,<j L_j,<j^T); panel
+//    (w, i, j), i > j, L_ij = (A_ij - L_i,<j L_j,<j^T) L_jj^-T; solve
+//    (w, x, j) for 64-column tile x of Y, Y_j = L_jj^-1 (R_j - L_j,<j
+//    Y_<j).  Blocks take tasks from a global counter in a topological order
+//    (decode): diag (w, 0), then for each step j the panel (w, j + 1, j) and
+//    diag (w, j + 1) of the critical chain first, the other panels of step
+//    j, the solves of step j - 1; the solves of the last step at the end.
+//    Each task waits on per-window progress counters in global memory:
+//    rows[w][i], the block columns of L's block row i written, and
+//    cols[w][x], the row blocks of Y's column tile x written.  A task waits
+//    only on tasks handed out before it, each held by a block that is
+//    running, so the order cannot deadlock and no cooperative launch is
+//    needed;
+//  * the waits are per 64-k block of a product, so a task streams the
+//    blocks that are ready: diag (w, j + 1) does all but the last 64 k of
+//    its product while panel (w, j + 1, j), the step before it on the
+//    chain, is still running, and a panel its whole product before it
+//    waits for L_jj (look-ahead on the critical diagonal chain);
+//  * the products run on the tensor cores: wgmma m64n64k8 tf32, both
+//    operands K-major as TF32 wgmma requires (L's rows along k, Y's columns
+//    along its rows).  Operands arrive by TMA (3-D maps over [W, rows, k],
+//    boxes of 64 rows x 32 k = 128 bytes, 128-byte swizzle, zero fill past
+//    K) into a 3-stage ring on mbarriers, one producer warp issuing (a
+//    diagonal task's two operands are one box).  3xTF32, as accurate as
+//    f32 products: A goes to registers (register-A wgmma) split into hi =
+//    tf32(x) and lo = tf32(x - hi); B is split in its landed box, hi over
+//    x and lo beside it; lo hi + hi lo + hi hi are summed in f32 (hi hi
+//    alone under the caller's TF32 switch).  With A in registers wgmma
+//    reads only B from shared memory: a chunk costs the port 72 KB,
+//    against 112 KB with both operands split there, which ran slower on
+//    the H100.  Each chunk's wgmmas retire before the next is split: a
+//    second set of A fragments in flight spills at 2 blocks an SM;
+//  * accuracy: the running tile starts as the input tile, and each 64 k of
+//    products is summed in a fresh accumulator and taken off it with
+//    Kahan's compensation, which keeps the kernel within ~1.5x of the
+//    library pair's distance from a float64 solve (PERF.md);
+//  * the in-tile steps (64 x 64, once a task) stage the tile through shared
+//    memory, over the spent ring, into 8 rows x 4 columns a thread: the
+//    substitutions (the solve's, and the panel's posed as L_jj L_ij^T =
+//    C^T) by blocks of 8 rows, 8 barriers a tile; the factorization pivot
+//    by pivot, one barrier a pivot.  One reciprocal square root per pivot,
+//    correctly rounded (__frsqrt_rn, __frcp_rn), and LAPACK's scaling by it;
+//  * ordering across blocks: a tile's writers store, fence the async proxy
+//    and the device, meet at a barrier, and one of them raises the counter
+//    (atomicMax); the reader spins on an acquire load, fences the async
+//    proxy before its TMA load, and reads what it stages itself past L1;
+//  * a failed diagonal sets info and raises every counter of its window to
+//    kFail, so that the window's waiting tasks wake; tasks of a window
+//    found failed when they are taken do nothing.  Results do not depend
+//    on which block runs which task, nor on W: every tile's sums run in one
+//    order.
+//
+// Where its time goes (profile_solve.py on the H100, main path's shape;
+// PERF.md): a task's phases run one after another in its block (2 blocks
+// an SM); the products are ~2/3 of a block's time and the fixed phases
+// (the input tile's loads, the in-tile step, the stores and the release)
+// ~1/3.  L2 traffic is not the limit (the same loads from one L2-resident
+// box take as long), the L1 cache is (the most shared memory carved out
+// of it costs ~5%), so the ring stays at 3 stages and no tile is
+// prefetched into shared memory (both measured slower).
 
+#include <climits>
 #include <cstdint>
-#include <mutex>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kT = 64;                // tile side
-constexpr int kThreads = 128;         // 16 column x 8 row threads
-constexpr int kKc = 32;               // k of one product chunk
-constexpr int kSc = kKc + 4;          // chunk row stride (floats)
-constexpr int kChunk = kT * kSc;      // one operand's chunk
-constexpr int kRing = 2 * 2 * kChunk;  // two stages of A and B
-constexpr int kSt = kT + 4;           // row stride of cp.async'd tiles
-constexpr int kSp = kT + 1;           // row stride of the pivot buffer
-// dynamic shared memory, floats: factorization steps = ring (aliased by
-// L_jj's columns or by the panel) + L_jj + its pivots and their
-// reciprocals; solve = ring + L_jj + the Y tile + 1 / pivots
-constexpr int kFactorFloats = kRing + kT * kSt + 2 * kT;
-constexpr int kSolveFloats = kRing + 2 * kT * kSt + kT;
-static_assert(kT * kSt <= kRing && kT * kSp <= kRing, "tiles alias the ring");
+constexpr int kT = 64;                  // tile side
+constexpr int kKc = 32;                 // k of one chunk: a 128-byte box row
+constexpr int kStages = 3;              // ring stages
+constexpr int kThreads = 128 + 32;      // a consumer warpgroup, a producer
+constexpr int kBox = kT * kKc * 4;      // one operand's chunk, bytes
+constexpr int kStage = 3 * kBox;        // A, B, B's lo
+constexpr int kRing = kStages * kStage;
+// dynamic shared memory: 1024-byte alignment slack, the ring, the full and
+// empty barriers, the task slot
+constexpr int kSmem = 1024 + kRing + 2 * kStages * 8 + 16;
+constexpr int kSt = kT + 4;             // row stride of staged tiles
+constexpr int kSp = kT + 1;             // row stride of the pivot columns
+// the in-tile buffers (floats), over the ring once a task's chunks are
+// spent: L_jj, the finished tile, the running tile (the pivot columns
+// once it is in registers), the pivots' reciprocals and square roots
+constexpr int kLs = 0, kXs = kLs + kT * kSt, kStg = kXs + kT * kSt;
+constexpr int kCol = kStg, kRq = kStg + kT * kSt, kLq = kRq + kT;
+static_assert(kT * kSp <= kT * kSt, "the pivot columns fit the tile");
+static_assert((kLq + kT) * 4 <= kRing, "in-tile buffers fit the ring");
+constexpr int kFail = 1 << 30;          // a failed window's counters
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_u32(dst)), "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Rows [0, 64) x k [k0, k0 + 32) of a row-major operand (row stride ld)
-// into a chunk [64][kSc]; rows at or past ``valid`` are zero-filled.  With
-// kTF32 the thread rounds what it copied once it has landed (round_chunk).
-__device__ __forceinline__ void load_chunk(float* dst, const float* src,
-                                           int64_t ld, int k0, int valid) {
-#pragma unroll
-  for (int p = 0; p < kT * kKc / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads, r = idx >> 3;
-    const int k = (idx & 7) * 4;
-    cp_async16(dst + r * kSc + k, src + (r < valid ? r * ld : 0) + k0 + k,
-               r < valid);
-  }
-}
-
-__device__ __forceinline__ void round_chunk(float* dst) {
-#pragma unroll
-  for (int p = 0; p < kT * kKc / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads;
-    float* x = dst + (idx >> 3) * kSc + (idx & 7) * 4;
-#pragma unroll
-    for (int q = 0; q < 4; ++q) x[q] = tf32_round(x[q]);
-  }
-}
+// the consumer warpgroup's barrier (the producer warp is not in it)
+__device__ __forceinline__ void csync() { named_sync(1, 128); }
 
 using Tile = float[8][4];
-
-// P += A B^T over one chunk: a[i] row 8 tr + i of A, b[e] row tc + 16 e of
-// B, four k at a time.
-__device__ __forceinline__ void chunk_fma(const float* As, const float* Bs,
-                                          Tile& P) {
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
-#pragma unroll
-  for (int k = 0; k < kKc; k += 4) {
-    float4 b[4];
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      b[e] = *reinterpret_cast<const float4*>(Bs + (tc + 16 * e) * kSc + k);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const float4 a =
-          *reinterpret_cast<const float4*>(As + (tr * 8 + i) * kSc + k);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        P[i][e] = fmaf(a.x, b[e].x, P[i][e]);
-        P[i][e] = fmaf(a.y, b[e].y, P[i][e]);
-        P[i][e] = fmaf(a.z, b[e].z, P[i][e]);
-        P[i][e] = fmaf(a.w, b[e].w, P[i][e]);
-      }
-    }
-  }
-}
-
-// P -= A[0:64, 0:depth] B[0:64, 0:depth]^T, both operands row-major with
-// row stride ld; B's rows at or past b_valid read as zero.  P starts as the
-// tile the products come off.  Each 64 k (two chunks) is summed apart and
-// then taken off P with a compensation term (Kahan's), so the running
-// value, which shrinks towards the result (a pivot is small), keeps no
-// error of its own updates: without the compensation the kernel was ~2x
-// further from a float64 solve than the library pair on the main path's
-// blocks (chip_smoke.py), with one subtraction per product further still.
-// Chunks of 32 k stream through the two-stage ring.
-// The caller's own cp.async groups, committed before, have landed and are
-// visible on return (every path ends in a barrier after
-// cp_async_wait<0>), and the ring is free again.
-template <bool kTF32>
-__device__ __forceinline__ void tile_product(const float* A, const float* B,
-                                             int64_t ld, int depth,
-                                             int b_valid, float* ring,
-                                             Tile& P) {
-  const int n = depth / kKc;
-  Tile Q, C;                               // a 64-k sum, the compensation
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) C[i][e] = 0.0f;
-  if (n == 0) {
-    cp_async_wait<0>();
-    __syncthreads();
-    return;
-  }
-  load_chunk(ring, A, ld, 0, kT);
-  load_chunk(ring + kChunk, B, ld, 0, b_valid);
-  cp_async_commit();
-  for (int c = 0; c < n; ++c) {
-    float* st = ring + (c & 1) * 2 * kChunk;
-    if (c + 1 < n) {
-      float* nx = ring + ((c + 1) & 1) * 2 * kChunk;
-      load_chunk(nx, A, ld, (c + 1) * kKc, kT);
-      load_chunk(nx + kChunk, B, ld, (c + 1) * kKc, b_valid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    if constexpr (kTF32) {
-      round_chunk(st);
-      round_chunk(st + kChunk);
-    }
-    __syncthreads();
-    if ((c & 1) == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) Q[i][e] = 0.0f;
-    }
-    chunk_fma(st, st + kChunk, Q);
-    if ((c & 1) == 1 || c + 1 == n) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float y = -Q[i][e] - C[i][e];
-          const float t = P[i][e] + y;
-          C[i][e] = (t - P[i][e]) - y;
-          P[i][e] = t;
-        }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) P[i][e] -= C[i][e];
-}
-
-// P = S (kTrans: S^T), S a 64 x 64 row-major tile in global memory (row
-// stride ld), read straight into each thread's elements.
-template <bool kTrans = false>
-__device__ __forceinline__ void load_regs(const float* src, int64_t ld,
-                                          Tile& P) {
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
-#pragma unroll
-  for (int r = 0; r < 8; ++r)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int a = tr * 8 + r, b = tc + 16 * e;
-      P[r][e] = src[kTrans ? (int64_t)b * ld + a : (int64_t)a * ld + b];
-    }
-}
+using Frag = float[32];
 
 // P = L^-1 P for L lower triangular (Ls [64][kSt] row-major, its strict
 // lower triangle read; rq the reciprocals of its diagonal), by blocks of 8
@@ -284,7 +166,7 @@ __device__ __forceinline__ void left_solve(Tile& P, const float* Ls,
         dst[1] = make_float4(P[4][e], P[5][e], P[6][e], P[7][e]);
       }
     }
-    __syncthreads();
+    csync();
     if (tr > b) {
       float4 y[4][2];
 #pragma unroll
@@ -316,26 +198,6 @@ __device__ __forceinline__ void left_solve(Tile& P, const float* Ls,
   }
 }
 
-// A 64 x 64 row-major tile (row stride ld) into shared memory [64][kSt].
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int64_t ld) {
-#pragma unroll
-  for (int p = 0; p < kT * kT / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads, r = idx >> 4;
-    const int c = (idx & 15) * 4;
-    cp_async16(dst + r * kSt + c, src + r * ld + c, true);
-  }
-}
-
-// The window's info, read once by the block's first thread, so that every
-// thread of the block acts on one value.
-__device__ __forceinline__ int block_info(const int32_t* info, int w,
-                                          int* slot) {
-  if (threadIdx.x == 0) *slot = info[w];
-  __syncthreads();
-  return *slot;
-}
-
 // Factor the tile D (registers, lower triangle meaningful) in place of
 // itself: right-looking, one pivot a step.  Pivot q's column is published
 // unscaled to col[q][.] by the threads that hold it; every thread then
@@ -355,7 +217,7 @@ __device__ __forceinline__ int factor_tile(Tile& D, float* col, float* lq,
 #pragma unroll
         for (int i = 0; i < 8; ++i) col[q * kSp + tr * 8 + i] = D[i][e];
       }
-      __syncthreads();
+      csync();
       const float d = col[q * kSp + q];
       if (!(d > 0.0f)) return q + 1;
       const float r = __frsqrt_rn(d);
@@ -374,275 +236,469 @@ __device__ __forceinline__ int factor_tile(Tile& D, float* col, float* lq,
         for (int f = 0; f < 4; ++f) D[i][f] = fmaf(-a[i], b[f], D[i][f]);
     }
   }
-  __syncthreads();
+  csync();
   return 0;
 }
 
-// Window w's tiles of A and its two partial-sum slots.
-struct Win {
-  float* A;
-  float* dpart;
-  int Mp, W, w;
-  __device__ float* tile(int r, int c) const {
-    return A + ((int64_t)w * Mp + (int64_t)r * kT) * Mp + c * kT;
-  }
-  __device__ float* slot(int k) const {
-    return dpart + ((int64_t)(k & 1) * W + w) * kT * kT;
-  }
+// A tile task: kind 0 diagonal (w, j), 1 panel (w, i, j), 2 solve of
+// column tile x (w, x, j); -1 past the end.
+struct Task {
+  int kind, w, i, j, x;
 };
 
-// Diagonal step j of window w (block y): L_jj = chol(D), D = A_00 at j = 0,
-// else Dpart_j - L_j,j-1 L_j,j-1^T (Dpart_j left by panel step j - 1 in
-// dpart slot j % 2), written over A_jj with its strict upper triangle zero,
-// and the window's info.
-template <bool kTF32>
-__global__ void __launch_bounds__(kThreads, 3)
-chol_diag_kernel(float* __restrict__ A, float* __restrict__ dpart,
-                 int32_t* __restrict__ info, int Mp, int j) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int info_slot;
-  float* ring = sm;
-  float* col = ring;                       // L_jj's columns, unscaled
-  float* Ls = ring + kRing;                // L_jj, row-major [64][kSt]
-  float* rq = Ls + kT * kSt;               // 1 / pivots of L_jj
-  float* lq = rq + kT;                     // pivots of L_jj
-  const int w = blockIdx.y;
-  const Win win{A, dpart, Mp, (int)gridDim.y, w};
-  if (j > 0 && block_info(info, w, &info_slot) != 0) return;
-  Tile P;
-  if (j == 0) {
-    load_regs(win.tile(0, 0), Mp, P);
-  } else {
-    const float* prev = win.tile(j, j - 1);
-    load_regs(win.slot(j), kT, P);
-    tile_product<kTF32>(prev, prev, Mp, kT, kT, ring, P);
+// Task t of the topological order (see the header): W diagonals of step 0,
+// then for each step j the panels (w, j + 1, j) and diagonals (w, j + 1)
+// of the chain, the panels (w, i, j) for i > j + 1 (by i, then w), the
+// solves (w, x, j - 1) (by x, then w); the solves of the last step close.
+__device__ __forceinline__ Task decode(int t, int W, int nb, int nx) {
+  if (t < W) return Task{0, t, 0, 0, 0};
+  t -= W;
+  for (int j = 0; j <= nb; ++j) {
+    const int lead = j + 1 < nb ? W : 0;
+    if (t < lead) return Task{1, t, j + 1, j, 0};
+    t -= lead;
+    if (t < lead) return Task{0, t, j + 1, j + 1, 0};
+    t -= lead;
+    const int np = j + 2 < nb ? (nb - 2 - j) * W : 0;
+    if (t < np) return Task{1, t % W, j + 2 + t / W, j, 0};
+    t -= np;
+    const int ns = j > 0 ? nx * W : 0;
+    if (t < ns) return Task{2, t % W, j - 1, j - 1, t / W};
+    t -= ns;
   }
-  const int bad = factor_tile(P, col, lq, rq);
-  if (threadIdx.x == 0) info[w] = bad ? j * kT + bad : 0;
-  if (bad) return;
-  for (int idx = threadIdx.x; idx < kT * kT; idx += kThreads) {
-    const int r = idx >> 6, c = idx & 63;
-    Ls[r * kSt + c] =
-        c < r ? col[c * kSp + r] * rq[c] : (c == r ? lq[c] : 0.0f);
+  return Task{-1, 0, 0, 0, 0};
+}
+
+// Waits until *p > v and returns what it read.  A counter that never moves
+// is a fault: trap after ~10 s rather than hang the card.
+__device__ __forceinline__ int wait_above(const int* p, int v) {
+  int got = ld_acquire(p);
+  if (got > v) return got;
+  const long long t0 = clock64();
+  while ((got = ld_acquire(p)) <= v) {
+    __nanosleep(128);
+    if (clock64() - t0 > (1LL << 34)) __trap();
   }
-  __syncthreads();
-#pragma unroll
-  for (int p = 0; p < kT * kT / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads, r = idx >> 4;
-    const int c = (idx & 15) * 4;
-    *reinterpret_cast<float4*>(win.tile(j, j) + (int64_t)r * Mp + c) =
-        *reinterpret_cast<const float4*>(Ls + r * kSt + c);
+  return got;
+}
+
+// Raises *p to v once every consumer thread's stores of the tile are
+// visible to other blocks, their TMA loads included.
+__device__ __forceinline__ void publish(int* p, int v) {
+  fence_proxy_async_global();
+  csync();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicMax(p, v);
   }
 }
 
-// Panel step j (j < Mp / 64 - 1) of window w (block y).  Block x >= 1:
-// C^T = A_ij^T - L_j,<j L_i,<j^T, i = j + x, then L_jj L_ij^T = C^T by
-// left_solve, which leaves L_ij row-major in shared memory; with want_l,
-// zeros over A_ji.  Block x = 0: the next diagonal tile's partial sum
-// Dpart_j+1 = A_j+1,j+1 - L_j+1,<j L_j+1,<j^T into dpart slot (j + 1) % 2.
-// Every block does one tile product of depth 64 j.
-template <bool kTF32>
-__global__ void __launch_bounds__(kThreads, 3)
-chol_panel_kernel(float* __restrict__ A, float* __restrict__ dpart,
-                  const int32_t* __restrict__ info, int Mp, int j,
-                  int want_l) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int info_slot;
-  float* ring = sm;
-  float* xs = ring;                        // L_ij, row-major [64][kSt]
-  float* Ls = ring + kRing;                // L_jj, row-major [64][kSt]
-  float* rq = Ls + kT * kSt;               // 1 / pivots of L_jj
-  const int w = blockIdx.y, x = blockIdx.x;
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
-  const Win win{A, dpart, Mp, (int)gridDim.y, w};
-  if (block_info(info, w, &info_slot) != 0) return;
-  Tile P;
-  if (x == 0) {
-    const int i = j + 1;
-    load_regs(win.tile(i, i), Mp, P);
-    tile_product<kTF32>(win.tile(i, 0), win.tile(i, 0), Mp, j * kT, kT, ring,
-                        P);
+// Accumulator layout of m64n64 (warp q of the warpgroup): rows 16 q +
+// lane / 4 in registers 4 c, 4 c + 1 and that + 8 in 4 c + 2, 4 c + 3;
+// columns 8 c + 2 (lane % 4) + {0, 1}.  at(r, col) gives the element.
+template <class F>
+__device__ __forceinline__ void frag_load(Frag& P, F at) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 4; ++h)
+      P[4 * c + h] = at(r + 8 * (h >> 1), 8 * c + c0 + (h & 1));
+}
+
+// The fragment into t [64][kSt], row-major.
+__device__ __forceinline__ void frag_store(const Frag& P, float* t) {
+  const int lane = threadIdx.x & 31;
+  const int r = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
+#pragma unroll
+  for (int c = 0; c < 8; ++c)
+#pragma unroll
+    for (int h = 0; h < 4; h += 2)
+      *reinterpret_cast<float2*>(t + (r + 4 * h) * kSt + 8 * c + c0) =
+          make_float2(P[4 * c + h], P[4 * c + h + 1]);
+}
+
+// B's landed box in place: hi = tf32(x) over x and, with kX3, lo =
+// tf32(x - hi) into ``lo``.  Elementwise, so the swizzle does not matter:
+// both boxes share it.  (Taking the box as its own hi, truncated by the
+// tensor cores, saves the hi write but put the solve 1.57x the library
+// pair's distance from float64 on the H100, against 1.16x rounded.)
+template <bool kX3>
+__device__ __forceinline__ void split_b(uint8_t* box, uint8_t* lo) {
+  float4* x = reinterpret_cast<float4*>(box);
+  float4* l = reinterpret_cast<float4*>(lo);
+#pragma unroll
+  for (int p = 0; p < kBox / 16 / 128; ++p) {
+    const int idx = threadIdx.x + 128 * p;
+    const float4 v = x[idx];
+    const float4 h = make_float4(tf32_round(v.x), tf32_round(v.y),
+                                 tf32_round(v.z), tf32_round(v.w));
+    x[idx] = h;
+    if constexpr (kX3)
+      l[idx] = make_float4(tf32_round(v.x - h.x), tf32_round(v.y - h.y),
+                           tf32_round(v.z - h.z), tf32_round(v.w - h.w));
+  }
+}
+
+// A's register fragments (wgmma_tf32_rs) for the four k8 steps of its
+// landed box (64 rows x 32 k, 128-byte swizzle: 16-byte chunk c of row r
+// at chunk c ^ (r % 8)), split into hi = tf32(x) and, with kX3, lo =
+// tf32(x - hi).  Conflict-free: a warp's 32 loads of one register hit 8
+// rows at 8 distinct chunks.
+template <bool kX3>
+__device__ __forceinline__ void load_a(const uint8_t* box,
+                                       uint32_t (&hi)[16],
+                                       uint32_t (&lo)[16]) {
+  const int lane = threadIdx.x & 31, g = lane >> 2;
+  const float* a = reinterpret_cast<const float*>(box) +
+                   (16 * (threadIdx.x >> 5) + g) * kKc + (lane & 3);
+#pragma unroll
+  for (int kk = 0; kk < kKc / 8; ++kk)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int c = 2 * kk + (q >> 1);
+      const float x = a[8 * (q & 1) * kKc + ((c ^ g) << 2)];
+      const float h = tf32_round(x);
+      hi[4 * kk + q] = __float_as_uint(h);
+      if constexpr (kX3) lo[4 * kk + q] = __float_as_uint(tf32_round(x - h));
+    }
+}
+
+// Keeps a fragment's registers from being reused before the wgmmas that
+// read them have retired (the caller's wgmma_wait comes first).
+__device__ __forceinline__ void keep(uint32_t (&f)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+r"(f[i]) :: "memory");
+}
+
+// Q (+)= A B^T over one chunk (32 k): A's fragments, B's box at shared
+// address b and its lo box at lo.  ``first`` overwrites Q (the start of
+// a 64-k block).  3xTF32: A lo B hi + A hi B lo + A hi B hi.
+template <bool kX3>
+__device__ __forceinline__ void chunk_products(Frag& Q,
+                                               const uint32_t (&ah)[16],
+                                               const uint32_t (&al)[16],
+                                               uint32_t b, uint32_t lo,
+                                               int first) {
+  const uint64_t bh = smem_desc(b), bl = smem_desc(lo);
+#pragma unroll
+  for (int kk = 0; kk < kKc / 8; ++kk) {
+    const int sc = (first && kk == 0) ? 0 : 1, f = 4 * kk;
+    if constexpr (kX3) {
+      wgmma_tf32_rs(Q, al[f], al[f + 1], al[f + 2], al[f + 3], bh + 2 * kk,
+                    sc);
+      wgmma_tf32_rs(Q, ah[f], ah[f + 1], ah[f + 2], ah[f + 3], bl + 2 * kk,
+                    1);
+      wgmma_tf32_rs(Q, ah[f], ah[f + 1], ah[f + 2], ah[f + 3], bh + 2 * kk,
+                    1);
+    } else {
+      wgmma_tf32_rs(Q, ah[f], ah[f + 1], ah[f + 2], ah[f + 3], bh + 2 * kk,
+                    sc);
+    }
+  }
+}
+
+template <bool kX3>
+__global__ void __launch_bounds__(kThreads, 2)
+chol_solve_kernel(const __grid_constant__ CUtensorMap mapL,
+                  const __grid_constant__ CUtensorMap mapY, float* A,
+                  float* Y, int* flags, int W, int Mp, int K, int want_l,
+                  int total) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kRing);
+  uint64_t* empty = full + kStages;
+  int* slot = reinterpret_cast<int*>(empty + kStages);   // task, failed
+  float* sm = reinterpret_cast<float*>(ring);
+  const int nb = Mp / kT, nx = (K + kT - 1) / kT;
+  int* info = flags;
+  int* rows = info + W;                 // [W][nb]
+  int* cols = rows + W * nb;            // [W][nx]
+  int* counter = cols + W * nx;
+  const int warp = __shfl_sync(0xffffffff, (int)threadIdx.x / 32, 0);
+  const int lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    const int t = atomicAdd(counter, 1);
+    slot[0] = t;
+    slot[1] = t < total ? ld_acquire(info + decode(t, W, nb, nx).w) : 0;
+  }
+  uint32_t gc = 0;                      // chunks through the ring so far
+  for (;;) {
+    __syncthreads();                    // the slot holds this task
+    const int t = __shfl_sync(0xffffffff, slot[0], 0);
+    const int failed = __shfl_sync(0xffffffff, slot[1], 0);
+    __syncthreads();                    // everyone has read it
+    if (t >= total) break;
+    const Task k = decode(t, W, nb, nx);
+    const int w = k.w, i = k.i, j = k.j;
+    const bool same = k.kind == 0;      // a diagonal's operands are one box
+    const int n = failed ? 0 : 2 * j;   // chunks of 32 k
+    float* Aw = A + (int64_t)w * Mp * Mp;
+
+    if (warp == 4) {                    // producer warp: one thread issues
+      if (lane == 0) {
+        const int nxt = atomicAdd(counter, 1);
+        const int* pa = rows + w * nb + j;                // L's block row j
+        const int* pb = k.kind == 1 ? rows + w * nb + i   // L's block row i
+                      : k.kind == 2 ? cols + w * nx + k.x // Y's column tile
+                                    : pa;
+        int seen_a = 0, seen_b = 0;
+        for (int c = 0; c < n; ++c) {
+          const uint32_t s = gc % kStages, round = gc / kStages;
+          ++gc;
+          if ((c & 1) == 0) {           // a new 64-k block: its tiles done
+            const int kb = c >> 1;
+            if (seen_a <= kb) seen_a = wait_above(pa, kb);
+            if (seen_b <= kb) seen_b = wait_above(pb, kb);
+            fence_proxy_async_global();
+          }
+          if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+          uint8_t* st = ring + s * kStage;
+          mbar_expect_tx(&full[s], same ? kBox : 2 * kBox);
+          tma_load_3d(st, &mapL, &full[s], c * kKc, j * kT, w);
+          if (k.kind == 1)
+            tma_load_3d(st + kBox, &mapL, &full[s], c * kKc, i * kT, w);
+          else if (k.kind == 2)
+            tma_load_3d(st + kBox, &mapY, &full[s], c * kKc, k.x * kT, w);
+        }
+        slot[0] = nxt;
+        slot[1] = nxt < total ? ld_acquire(info + decode(nxt, W, nb, nx).w)
+                              : 0;
+      }
+      continue;
+    }
+    if (failed) continue;
+
+    // consumer warpgroup: the running tile P, its input to start with
+    Frag P, C, Q;
+    const int u0 = k.x * kT, valid = min(K - u0, kT);
+    float* Yj = Y + (int64_t)w * K * Mp + (int64_t)u0 * Mp + j * kT;
+    if (k.kind == 0) {
+      const float* Ajj = Aw + (int64_t)j * kT * Mp + j * kT;
+      frag_load(P, [&](int r, int c) { return __ldcg(Ajj + r * Mp + c); });
+    } else if (k.kind == 1) {           // C^T: rows of block j, columns i
+      const float* Aij = Aw + (int64_t)i * kT * Mp + j * kT;
+      frag_load(P, [&](int r, int c) { return __ldcg(Aij + c * Mp + r); });
+    } else {
+      frag_load(P, [&](int r, int c) {
+        return c < valid ? __ldcg(Yj + (int64_t)c * Mp + r) : 0.0f;
+      });
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) C[e] = Q[e] = 0.0f;
+
+    // P -= A B^T: A = L_j,<j; B = L_j,<j, L_i,<j or Y_<j's column tile.
+    // Each 64 k (two chunks) is summed apart in Q and taken off P with a
+    // compensation term (Kahan's), so the running value, which shrinks
+    // towards the result (a pivot is small), keeps no error of its own
+    // updates: without it the kernel was ~2x further from a float64
+    // solve than the library pair on the main path's blocks.
+    // One 64-k block an iteration, its two chunks unrolled, so that no
+    // wgmma is in flight past an iteration (ptxas then needs no wait of
+    // its own on a divergent path, which would serialize the wgmmas).
+    for (int kb = 0; kb < n / 2; ++kb) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint32_t ah[16], al[16];
+        const uint32_t s = gc % kStages, ph = (gc / kStages) & 1;
+        ++gc;
+        uint8_t* st = ring + s * kStage;
+        uint8_t* bbox = same ? st : st + kBox;
+        mbar_wait(&full[s], ph);
+        load_a<kX3>(st, ah, al);
+        if (same) csync();              // A's box is B's: read, then split
+        split_b<kX3>(bbox, st + 2 * kBox);
+        fence_proxy_async();            // the split, before wgmma reads it
+        csync();
+        fence_regs(Q);
+        wgmma_fence();
+        chunk_products<kX3>(Q, ah, al, smem_u32(bbox),
+                            smem_u32(st + 2 * kBox), h == 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(Q);
+        keep(ah);
+        if constexpr (kX3) keep(al);
+        if (threadIdx.x == 0) mbar_arrive(&empty[s]);
+      }
+#pragma unroll
+      for (int e = 0; e < 32; ++e) {
+        const float y = -Q[e] - C[e];
+        const float tt = P[e] + y;
+        C[e] = (tt - P[e]) - y;
+        P[e] = tt;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 32; ++e) P[e] -= C[e];
+
+    // the in-tile step on the spent ring
+    float* Ls = sm + kLs;
+    float* xs = sm + kXs;
+    float* stg = sm + kStg;
+    const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
+    frag_store(P, stg);
+    if (k.kind != 0 && threadIdx.x == 0)
+      wait_above(rows + w * nb + j, j); // L_jj written
+    csync();
+    Tile D;
 #pragma unroll
     for (int r = 0; r < 8; ++r)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        win.slot(i)[(tr * 8 + r) * kT + tc + 16 * e] = P[r][e];
-    return;
-  }
-  const int i = j + x;
-  load_tile(Ls, win.tile(j, j), Mp);
-  cp_async_commit();
-  load_regs<true>(win.tile(i, j), Mp, P);
-  tile_product<kTF32>(win.tile(j, 0), win.tile(i, 0), Mp, j * kT, kT, ring,
-                      P);
-  if (threadIdx.x < kT) rq[threadIdx.x] =
-      __frcp_rn(Ls[threadIdx.x * kSt + threadIdx.x]);
-  __syncthreads();
-  left_solve(P, Ls, rq, xs);
-  // L_ij out, coalesced along its rows; with want_l, zeros to (j, i)
+        D[r][e] = stg[(tr * 8 + r) * kSt + tc + 16 * e];
+    float* Ljj = Aw + (int64_t)j * kT * Mp + j * kT;
+    if (k.kind == 0) {
+      float* col = sm + kCol;
+      float* rq = sm + kRq;
+      float* lq = sm + kLq;
+      csync();                          // col is over the staged tile
+      const int bad = factor_tile(D, col, lq, rq);
+      if (bad) {
+        if (threadIdx.x == 0) {
+          atomicCAS(info + w, 0, j * kT + bad);
+          __threadfence();
+          for (int r = 0; r < nb; ++r) atomicMax(rows + w * nb + r, kFail);
+          for (int x = 0; x < nx; ++x) atomicMax(cols + w * nx + x, kFail);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < kT * kT; idx += 128) {
+          const int r = idx >> 6, c = idx & 63;
+          Ls[r * kSt + c] =
+              c < r ? col[c * kSp + r] * rq[c] : (c == r ? lq[c] : 0.0f);
+        }
+        csync();
 #pragma unroll
-  for (int p = 0; p < kT * kT / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads, r = idx >> 4;
-    const int c = (idx & 15) * 4;
-    *reinterpret_cast<float4*>(win.tile(i, j) + (int64_t)r * Mp + c) =
-        *reinterpret_cast<const float4*>(xs + r * kSt + c);
-    if (want_l)
-      *reinterpret_cast<float4*>(win.tile(j, i) + (int64_t)r * Mp + c) =
-          make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-  }
-}
-
-// Row block j of the forward solve of one 64-column tile x of window w's
-// right-hand side (column-major, column u at Y + u * Mp; columns at or past
-// K are not touched), in place: Y_j = L_jj^-1 (R_j - L_j,<j Y_<j), Y_<j as
-// the launches before it left it.
-template <bool kTF32>
-__global__ void __launch_bounds__(kThreads, 3)
-forward_solve_kernel(const float* __restrict__ L, float* __restrict__ Y,
-                     const int32_t* __restrict__ info, int Mp, int K, int j) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ int info_slot;
-  float* ring = sm;
-  float* Ls = sm + kRing;                  // L_jj [64][kSt]
-  float* ys = Ls + kT * kSt;               // Y_j, [column][row]
-  float* rq = ys + kT * kSt;
-  const int w = blockIdx.y, u0 = blockIdx.x * kT;
-  const int tc = threadIdx.x & 15, tr = threadIdx.x >> 4;
-  if (block_info(info, w, &info_slot) != 0) return;
-  const float* Lw = L + (int64_t)w * Mp * Mp;
-  float* Yw = Y + (int64_t)w * K * Mp + (int64_t)u0 * Mp;
-  const int valid = K - u0 < kT ? K - u0 : kT;
-  Tile P;
-  load_tile(Ls, Lw + (int64_t)j * kT * Mp + j * kT, Mp);
-  cp_async_commit();
-  // P = R_j, 8 rows of a column a thread (16-byte loads)
+        for (int p = 0; p < kT * kT / 4 / 128; ++p) {
+          const int idx = threadIdx.x + p * 128, r = idx >> 4;
+          const int c = (idx & 15) * 4;
+          *reinterpret_cast<float4*>(Ljj + (int64_t)r * Mp + c) =
+              *reinterpret_cast<const float4*>(Ls + r * kSt + c);
+        }
+        publish(rows + w * nb + j, j + 1);
+      }
+    } else {
+      float* rq = sm + kRq;
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int u = tc + 16 * e;
-    float4 lo = make_float4(0.0f, 0.0f, 0.0f, 0.0f), hi = lo;
-    if (u < valid) {
-      const float4* src = reinterpret_cast<const float4*>(
-          Yw + (int64_t)u * Mp + j * kT + tr * 8);
-      lo = src[0];
-      hi = src[1];
+      for (int p = 0; p < kT * kT / 4 / 128; ++p) {
+        const int idx = threadIdx.x + p * 128, r = idx >> 4;
+        const int c = (idx & 15) * 4;
+        *reinterpret_cast<float4*>(Ls + r * kSt + c) = __ldcg(
+            reinterpret_cast<const float4*>(Ljj + (int64_t)r * Mp + c));
+      }
+      csync();
+      if (threadIdx.x < kT)
+        rq[threadIdx.x] = __frcp_rn(Ls[threadIdx.x * kSt + threadIdx.x]);
+      csync();
+      left_solve(D, Ls, rq, xs);        // the finished tile's rows in xs
+      if (k.kind == 1) {
+        // L_ij out, coalesced along its rows; with want_l, zeros to (j, i)
+        float* Lij = Aw + (int64_t)i * kT * Mp + j * kT;
+        float* Lji = Aw + (int64_t)j * kT * Mp + i * kT;
+#pragma unroll
+        for (int p = 0; p < kT * kT / 4 / 128; ++p) {
+          const int idx = threadIdx.x + p * 128, r = idx >> 4;
+          const int c = (idx & 15) * 4;
+          *reinterpret_cast<float4*>(Lij + (int64_t)r * Mp + c) =
+              *reinterpret_cast<const float4*>(xs + r * kSt + c);
+          if (want_l)
+            *reinterpret_cast<float4*>(Lji + (int64_t)r * Mp + c) =
+                make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+        publish(rows + w * nb + i, j + 1);
+      } else {
+        // Y_j out over R_j, coalesced along the columns
+#pragma unroll
+        for (int p = 0; p < kT * kT / 4 / 128; ++p) {
+          const int idx = threadIdx.x + p * 128, u = idx >> 4;
+          const int m = (idx & 15) * 4;
+          if (u < valid)
+            *reinterpret_cast<float4*>(Yj + (int64_t)u * Mp + m) =
+                *reinterpret_cast<const float4*>(xs + u * kSt + m);
+        }
+        publish(cols + w * nx + k.x, j + 1);
+      }
     }
-    const float r[8] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-    for (int i = 0; i < 8; ++i) P[i][e] = r[i];
-  }
-  // P -= L_j,<j Y_<j: Y_<j's columns are rows of the B operand
-  tile_product<kTF32>(Lw + (int64_t)j * kT * Mp, Yw, Mp, j * kT, valid, ring,
-                      P);
-  if (threadIdx.x < kT) rq[threadIdx.x] =
-      __frcp_rn(Ls[threadIdx.x * kSt + threadIdx.x]);
-  __syncthreads();
-  left_solve(P, Ls, rq, ys);                   // Y_j into ys
-  // Y_j out over R_j, coalesced along the columns
-#pragma unroll
-  for (int p = 0; p < kT * kT / 4 / kThreads; ++p) {
-    const int idx = threadIdx.x + p * kThreads, u = idx >> 4;
-    const int m = (idx & 15) * 4;
-    if (u < valid)
-      *reinterpret_cast<float4*>(Yw + (int64_t)u * Mp + j * kT + m) =
-          *reinterpret_cast<const float4*>(ys + u * kSt + m);
+    fence_proxy_async();                // the next TMA loads land here
   }
 }
 
-// The factorization's stream, of the device's highest priority, and an
-// event to order it with the caller's, one pair per device, made at first
-// use and kept.  The lock also keeps two host threads' launch sequences
-// from interleaving on them.
-struct Side {
-  cudaStream_t stream = nullptr;
-  cudaEvent_t ev = nullptr;
-};
-
-std::mutex side_lock;
-
-cudaError_t side_for(Side* out) {
-  static Side table[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+template <bool kX3>
+cudaError_t prepare(int* per_sm) {
+  cudaError_t e = cudaFuncSetAttribute(
+      chol_solve_kernel<kX3>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmem);
   if (e != cudaSuccess) return e;
-  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
-  Side& s = table[dev];
-  if (s.stream == nullptr) {
-    int least = 0, greatest = 0;
-    if ((e = cudaDeviceGetStreamPriorityRange(&least, &greatest)) !=
-            cudaSuccess ||
-        (e = cudaEventCreateWithFlags(&s.ev, cudaEventDisableTiming)) !=
-            cudaSuccess ||
-        (e = cudaStreamCreateWithPriority(&s.stream, cudaStreamNonBlocking,
-                                          greatest)) != cudaSuccess)
-      return e;
-  }
-  *out = s;
-  return cudaSuccess;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, chol_solve_kernel<kX3>, kThreads, kSmem);
 }
 
-// The factorization's launches go to the side stream, each row block of
-// the solve to the caller's stream once the diagonal step it needs has
-// run: the solve's row blocks fill the card beside the factorization's
-// narrow last launches.  The caller's stream ends behind the last of both;
-// nothing waits on the host.
-template <bool kTF32>
-int chol_solve(float* A, float* Y, float* dpart, int32_t* info, int W,
-               int Mp, int K, int want_l, cudaStream_t st) {
-  const int nb = Mp / kT, fbytes = kFactorFloats * 4,
-            sbytes = kSolveFloats * 4;
-  cudaError_t e = allow_smem(chol_diag_kernel<kTF32>, fbytes);
-  if (e == cudaSuccess) e = allow_smem(chol_panel_kernel<kTF32>, fbytes);
-  if (e == cudaSuccess) e = allow_smem(forward_solve_kernel<kTF32>, sbytes);
+template <bool kX3>
+int chol_solve(const CUtensorMap& mapL, const CUtensorMap& mapY, float* A,
+               float* Y, int* flags, int W, int Mp, int K, int want_l,
+               int total, cudaStream_t st) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t e = prepare<kX3>(&per_sm);
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  std::lock_guard<std::mutex> hold(side_lock);
-  Side side;
-  if ((e = side_for(&side)) != cudaSuccess ||
-      (e = cudaEventRecord(side.ev, st)) != cudaSuccess ||
-      (e = cudaStreamWaitEvent(side.stream, side.ev, 0)) != cudaSuccess)
-    return (int)e;
-  for (int j = 0; j < nb; ++j) {
-    chol_diag_kernel<kTF32><<<dim3(1, W), kThreads, fbytes, side.stream>>>(
-        A, dpart, info, Mp, j);
-    if ((e = cudaGetLastError()) != cudaSuccess ||
-        (e = cudaEventRecord(side.ev, side.stream)) != cudaSuccess ||
-        (e = cudaStreamWaitEvent(st, side.ev, 0)) != cudaSuccess)
-      return (int)e;
-    forward_solve_kernel<kTF32><<<dim3((K + kT - 1) / kT, W), kThreads,
-                                  sbytes, st>>>(A, Y, info, Mp, K, j);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    if (j + 1 < nb) {
-      chol_panel_kernel<kTF32><<<dim3(nb - j, W), kThreads, fbytes,
-                                 side.stream>>>(A, dpart, info, Mp, j,
-                                                want_l);
-      if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    }
-  }
-  return 0;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int grid = (int)((long long)per_sm * sms < total
+                             ? (long long)per_sm * sms : total);
+  chol_solve_kernel<kX3><<<grid, kThreads, kSmem, st>>>(
+      mapL, mapY, A, Y, flags, W, Mp, K, want_l, total);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dynamic shared memory of the factorization's and the solve's blocks,
-// bytes (printed by chip_smoke.py)
-extern "C" int gauss_chol_solve_smem(int solve) {
-  return (solve ? kSolveFloats : kFactorFloats) * 4;
+// Dynamic shared memory of a block, bytes; *blocks_per_sm the blocks an SM
+// holds at once (both printed by chip_smoke.py).
+extern "C" int gauss_chol_solve_smem(int* blocks_per_sm) {
+  if (prepare<true>(blocks_per_sm) != cudaSuccess) *blocks_per_sm = -1;
+  return kSmem;
+}
+
+// int32 entries of the flags buffer the wrapper zeroes for a call: info
+// [W] first, then the progress counters and the task counter.
+extern "C" int gauss_chol_solve_flags(int W, int Mp, int K) {
+  return W * (1 + Mp / kT + (K + kT - 1) / kT) + 1;
 }
 
 // In place, per window w < W: L over A[w]'s lower triangle (A [W, Mp, Mp]
 // row-major, its lower triangle read; want_l zeroes the strict upper
 // triangle), Y = L^-1 rhs over Y [W, K, Mp] in memory (rhs column-major),
-// info [W] int32; dpart: scratch of 2 W 64 x 64 floats.  Mp a multiple of
-// 64, K >= 1; A and Y 16-byte aligned.  2 Mp / 64 - 1 factorization
-// launches on a stream of the library's own, Mp / 64 solve launches on
-// ``stream``, which ends behind both.
-extern "C" int gauss_chol_solve(void* A, void* Y, void* dpart, void* info,
-                                int W, int Mp, int K, int want_l, int tf32,
-                                void* stream) {
+// info in the first W entries of ``flags`` (gauss_chol_solve_flags int32
+// entries, zero on entry).  Mp a multiple of 64, K >= 1; A and Y 16-byte
+// aligned.  One launch on ``stream``.
+extern "C" int gauss_chol_solve(void* A, void* Y, void* flags, int W, int Mp,
+                                int K, int want_l, int tf32, void* stream) {
   if (Mp % kT || K < 1) return (int)cudaErrorInvalidValue;
   if (W <= 0 || Mp == 0) return 0;
+  const long long nb = Mp / kT, nx = (K + kT - 1) / kT;
+  const long long total = W * (nb + nb * (nb - 1) / 2 + nb * nx);
+  if (total >= INT_MAX / 2) return (int)cudaErrorInvalidValue;
+  CUtensorMap mapL, mapY;
+  if (!encode_3d(&mapL, A, Mp, Mp, W, 4LL * Mp, 4LL * Mp * Mp, kKc, kT,
+                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_DATA_TYPE_FLOAT32)
+      || !encode_3d(&mapY, Y, Mp, K, W, 4LL * Mp, 4LL * Mp * K, kKc, kT,
+                    CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_DATA_TYPE_FLOAT32))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  return tf32 ? chol_solve<true>((float*)A, (float*)Y, (float*)dpart,
-                                 (int32_t*)info, W, Mp, K, want_l, st)
-              : chol_solve<false>((float*)A, (float*)Y, (float*)dpart,
-                                  (int32_t*)info, W, Mp, K, want_l, st);
+  return tf32 ? chol_solve<false>(mapL, mapY, (float*)A, (float*)Y,
+                                  (int*)flags, W, Mp, K, want_l, (int)total,
+                                  st)
+              : chol_solve<true>(mapL, mapY, (float*)A, (float*)Y,
+                                 (int*)flags, W, Mp, K, want_l, (int)total,
+                                 st);
 }

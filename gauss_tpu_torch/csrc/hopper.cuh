@@ -1,8 +1,9 @@
 // Device helpers shared by the Hopper kernels (gram.cu, probe7_int4.cu,
 // region_tail.cu, chol_solve.cu): TF32 rounding, the shared-memory opt-in,
-// mbarriers, cluster barriers, TMA loads and stores, wgmma s8 and the
-// encoding of TMA tensor maps.  Each translation unit gets its own copy (anonymous
-// namespace); nothing here launches a kernel.
+// mbarriers, cluster barriers, TMA loads and stores, wgmma s8 and tf32,
+// acquire loads and proxy fences, and the encoding of TMA tensor maps.
+// Each translation unit gets its own copy (anonymous namespace); nothing
+// here launches a kernel.
 
 #pragma once
 
@@ -107,6 +108,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// The box at (c0, c1, c2) of a 3-D tensor map, as tma_load.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
+         "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // A bulk copy of ``bytes`` (a multiple of 16) from global to shared memory,
 // completing its bytes on ``bar``.
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
@@ -154,6 +167,22 @@ __device__ __forceinline__ void bulk_wait() {
 // of the async proxy (a TMA store of the same buffer).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Orders this thread's generic global-memory accesses (its own, and what an
+// acquire made visible to it) with later accesses of the async proxy: a TMA
+// load of data that generic stores wrote.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
+// *p with acquire semantics at device scope (a progress counter that
+// another block releases).
+__device__ __forceinline__ int ld_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
 }
 
 // Barrier ``id`` (1..15; 0 is __syncthreads) over ``threads`` threads, a
@@ -263,6 +292,44 @@ __device__ __forceinline__ void wgmma_s8_rs(int (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
 }
 
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+#define GAUSS_WGMMA_F32                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+  "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),              \
+  "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),          \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),          \
+  "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),          \
+  "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),          \
+  "+f"(d[31])
+
+// d (+)= A[64 x 8] * B[64 x 8]^T in TF32 (the low 13 mantissa bits of
+// each operand ignored), f32 accumulation, A in registers: the
+// warpgroup's m64k8 fragment, warp q holding rows 16 q + lane / 4 (a0,
+// a2) and that + 8 (a1, a3), k = lane % 4 (a0, a1) and that + 4 (a2,
+// a3), as TF32 bit patterns; B K-major in shared memory with 128-byte
+// swizzle (smem_desc); scale_d == 0 overwrites d.  The fragment's
+// registers must not change until the wgmma has retired.
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], uint32_t a0,
+                                              uint32_t a1, uint32_t a2,
+                                              uint32_t a3, uint64_t db,
+                                              int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : GAUSS_WGMMA_F32
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(scale_d));
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -306,6 +373,25 @@ inline bool encode(CUtensorMap* map, const void* base, long long rows,
   cuuint32_t elem[2] = {1, 1};
   return fn(map, type, 2, const_cast<void*>(base),
             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [d2, d1, d0] elements of ``type`` (d0 contiguous; the d1 and d2 strides
+// in bytes, multiples of 16): boxes of box0 x box1 x 1, zero fill out of
+// bounds.
+inline bool encode_3d(CUtensorMap* map, const void* base, long long d0,
+                      long long d1, long long d2, long long s1, long long s2,
+                      int box0, int box1, CUtensorMapSwizzle swizzle,
+                      CUtensorMapDataType type) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || d0 <= 0 || d1 <= 0 || d2 <= 0) return false;
+  cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
+  cuuint32_t box[3] = {(cuuint32_t)box0, (cuuint32_t)box1, 1};
+  cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

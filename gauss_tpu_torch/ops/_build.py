@@ -87,11 +87,13 @@ _SIGNATURES = {
     "gauss_region_finalize": [_P, ctypes.c_longlong, ctypes.c_longlong, _P,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, _P, _P],
-    # chol_solve: (A, Y, dpart, info, W, Mp, K, want_l, tf32, stream)
-    "gauss_chol_solve": [_P, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+    # chol_solve: (A, Y, flags, W, Mp, K, want_l, tf32, stream)
+    "gauss_chol_solve": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                          ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    # (solve)
-    "gauss_chol_solve_smem": [ctypes.c_int],
+    # (W, Mp, K): int32 entries of the flags buffer
+    "gauss_chol_solve_flags": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
+    # (*blocks_per_sm)
+    "gauss_chol_solve_smem": [ctypes.POINTER(ctypes.c_int)],
 }
 
 

@@ -315,16 +315,14 @@ def cholesky_solve(B11: torch.Tensor, rhs: torch.Tensor, want_l: bool = False):
     is not positive or is NaN).  L, lower triangular with a zero strict
     upper triangle, only when ``want_l``.
 
-    On CUDA both are written in place (the only scratch is two 64 x 64
-    tiles a window): Y over rhs, which must be column-major in each window
-    as ``corr_um_rhs`` returns it (strides (K Mp, 1, Mp)), and L over B11
-    (contiguous; without ``want_l`` only its lower triangle is meaningful
-    afterwards); a window whose factorization failed has unspecified Y and
-    L.  Callers take the returned tensors and treat B11 and rhs as
-    consumed.  The factorization runs on a stream of the kernel library's
-    own, ordered with the current stream by events; the current stream
-    ends behind all of the work, and nothing waits on the host.  CPU
-    tensors take the plain version."""
+    On CUDA both are written in place: Y over rhs, which must be
+    column-major in each window as ``corr_um_rhs`` returns it (strides
+    (K Mp, 1, Mp)), and L over B11 (contiguous; without ``want_l`` only its
+    lower triangle is meaningful afterwards); a window whose factorization
+    failed has unspecified Y and L.  Callers take the returned tensors and
+    treat B11 and rhs as consumed.  One launch on the current stream; the
+    only scratch is the kernel's zeroed int32 progress counters, info the
+    first B of them.  CPU tensors take the plain version."""
     dev = _check("cholesky_solve", (B11, rhs))
     if dev.type == "cpu":
         return cholesky_solve_plain(B11, rhs, want_l)
@@ -342,14 +340,13 @@ def cholesky_solve(B11: torch.Tensor, rhs: torch.Tensor, want_l: bool = False):
     if B11.data_ptr() % 16 or rhs.data_ptr() % 16:
         raise ValueError("cholesky_solve: B11 and rhs must be 16-byte "
                          "aligned")
-    info = torch.empty((B,), dtype=torch.int32, device=dev)
-    dpart = torch.empty((2, B, TILE, TILE), dtype=torch.float32, device=dev)
+    flags = torch.zeros((lib.gauss_chol_solve_flags(B, Mp, K),),
+                        dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.gauss_chol_solve(
-            B11.data_ptr(), rhs.data_ptr(), dpart.data_ptr(),
-            info.data_ptr(), B, Mp, K,
+            B11.data_ptr(), rhs.data_ptr(), flags.data_ptr(), B, Mp, K,
             int(want_l), int(torch.backends.cuda.matmul.allow_tf32),
             _stream(dev))
     _build.check(err, "cholesky_solve")
     launches["cholesky_solve"] += 1
-    return rhs, (B11 if want_l else None), info
+    return rhs, (B11 if want_l else None), flags[:B]

@@ -4,9 +4,13 @@
 On the CPU its plain version (the library pair cholesky_ex +
 solve_triangular) against gauss_tpu's blocked Cholesky and triangular
 solve (ops/window_kernel._blocked_cholesky_lower / _blocked_trsm_lower) on
-the same seeded blocks, info as cholesky_ex gives it, and the wrapper's
-refusals on fake CUDA tensors; on the card (``gpu``) the kernel against
-its plain version.
+the same seeded blocks, info as cholesky_ex gives it, the wrapper's
+refusals on fake CUDA tensors, and the kernel's arithmetic emulated in
+plain torch (its blocked left-looking algorithm on 64-wide blocks, its
+3xTF32 tile products with cvt.rna rounding, its compensation per 64 k)
+against a float64 solve; on the card (``gpu``) the kernel against its
+plain version, a slab with failed windows, and its results bit-equal
+between runs and between slabs of other widths.
 
 The blocks are what the region tails solve: B11 the correlations of Mp
 "measured" SNPs with the ridge (diagonal 1 + LAMBDA), the right-hand side
@@ -25,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import SOLVE_ACC, solve_bounds
 from gauss_tpu.ops import window_kernel as jwk
 from gauss_tpu_torch.core.stats import full_f32_matmul
 from gauss_tpu_torch.ops import _build, region_tail
@@ -185,6 +190,93 @@ def test_cholesky_solve_refuses_what_the_kernel_does_not_take(monkeypatch):
                 region_tail.cholesky_solve(*args)
 
 
+# -- the kernel's arithmetic, emulated -----------------------------------------
+
+def tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 does: to nearest, ties away
+    from zero (sign and magnitude: add half of the 13 dropped bits' unit to
+    the magnitude, then clear them)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def tile_products(a, b, x3):
+    """a b^T as the kernel's tensor cores form it, f32 sums: 3xTF32 (lo hi
+    + hi lo + hi hi, hi = tf32(x), lo = tf32(x - hi)) or, the control,
+    hi hi alone (what the TF32 switch asks for)."""
+    ah, bh = tf32(a), tf32(b)
+    if not x3:
+        return ah @ bh.T
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return al @ bh.T + ah @ bl.T + ah @ bh.T
+
+
+def take_off(P, A, B, x3, T=64):
+    """P - A B^T as the kernel forms it: each 64 k of products summed
+    apart and taken off P with Kahan's compensation."""
+    C = torch.zeros_like(P)
+    for k0 in range(0, A.shape[1], T):
+        y = -tile_products(A[:, k0:k0 + T], B[:, k0:k0 + T], x3) - C
+        t = P + y
+        C = (t - P) - y
+        P = t
+    return P - C
+
+
+def emulated_solve(B11, rhs, x3, T=64):
+    """(Y, L) of one window [Mp, Mp], [Mp, K] float32 by the kernel's
+    algorithm: left-looking by T-wide block columns, each tile's products
+    by take_off, the in-tile steps (the tile's Cholesky, the panel's and
+    the solve's substitutions) in float32."""
+    Mp = B11.shape[0]
+    L, Y = torch.zeros_like(B11), rhs.clone()
+    for j in range(Mp // T):
+        s, r = slice(j * T, (j + 1) * T), slice((j + 1) * T, Mp)
+        D = take_off(B11[s, s], L[s, :j * T], L[s, :j * T], x3)
+        L[s, s] = torch.linalg.cholesky(torch.tril(D) + torch.tril(D, -1).T)
+        C = take_off(B11[r, s], L[r, :j * T], L[s, :j * T], x3)
+        L[r, s] = torch.linalg.solve_triangular(L[s, s], C.T, upper=False).T
+    for j in range(Mp // T):
+        s = slice(j * T, (j + 1) * T)
+        R = take_off(Y[s].T, Y[:j * T].T, L[s, :j * T], x3).T
+        Y[s] = torch.linalg.solve_triangular(L[s, s], R, upper=False)
+    return Y, L
+
+
+@pytest.mark.parametrize("x3", [True, False], ids=["3xTF32", "1xTF32"])
+def test_emulated_tile_products_against_float64(x3):
+    """One window at the main path's widths (Mp = 1280, K = 961): with
+    3xTF32 products and the compensation the blocked solve's Y and L are
+    within SOLVE_ACC (chip_smoke's bar on the card) of the library pair's
+    distance from a float64 solve; with 1xTF32 products (the control) both
+    are far past it."""
+    B11, rhs = blocks(1, 1280, 960)
+    B11, rhs = garbage_upper(B11)[0], rhs[0]
+    L64 = torch.linalg.cholesky(torch.tril(B11).double()
+                                + torch.tril(B11, -1).double().T)
+    Y64 = torch.linalg.solve_triangular(L64, rhs.double(), upper=False)
+    pY, pL, _ = region_tail.cholesky_solve_plain(B11[None], rhs[None], True)
+    Y, L = emulated_solve(B11, rhs, x3)
+    ratios = (normwise(Y, Y64) / normwise(pY[0], Y64),
+              normwise(L, L64) / normwise(pL[0], L64))
+    if x3:
+        assert max(ratios) <= SOLVE_ACC, ratios
+    else:
+        assert min(ratios) > 10 * SOLVE_ACC, ratios
+
+
+def test_solve_bounds_at_the_main_path_shape():
+    """chip_smoke.solve_bounds at W = 43, Mp = 1280, K = 961: 97.76 GFLOP,
+    3x that at the TF32 peak 0.593 ms, the f32 bound 1.459 ms, 564 MB of
+    bytes (L too with want_l)."""
+    t_ms, f_ms, b_ms, gflop, mb = solve_bounds(43, 1280, 961, False)
+    assert abs(gflop - 97.763) < 1e-3 and abs(mb - 564.16) < 0.01
+    assert abs(t_ms - 0.5925) < 1e-4 and abs(f_ms - 1.4591) < 1e-4
+    assert abs(b_ms - mb * 1e6 / 3.35e12 * 1e3) < 1e-9
+    with_l = solve_bounds(43, 1280, 961, True)[4]
+    assert abs(with_l - (mb + 4 * 43 * 1280 ** 2 / 1e6)) < 1e-6
+
+
 # -- on the card --------------------------------------------------------------
 
 #: (W, Mp, Up): a small slab, more tiles than SMs, one window of the main
@@ -274,3 +366,58 @@ def test_kernel_follows_the_tf32_switch_on_gpu():
     noise = normwise(f32.cpu(), plain.cpu())
     moved = normwise(tf.cpu(), f32.cpu())
     assert max(1e-6, 10 * noise) < moved < 1e-1, (noise, moved)
+
+
+def _bad_slab(B11):
+    """B11 with window 1 indefinite at a middle pivot and window 2's pivot
+    at 3/4 NaN, and the info they must give."""
+    W, Mp, _ = B11.shape
+    p, q = Mp // 2 + 5, 3 * Mp // 4 + 7
+    want = [0] * W
+    want[1], want[2] = p + 1, q + 1
+    return fail_windows(B11, [(1, p, -1.0), (2, q, float("nan"))]), want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("want_l", [False, True])
+def test_kernel_failed_windows_leave_the_others_alone_on_gpu(want_l):
+    """A slab with an indefinite and a NaN window returns, info names their
+    pivots, and every other window's Y (and L) is bit-equal to the same
+    slab's without them."""
+    B11, rhs = _gpu_blocks("W16-Mp768-Up512")
+    bad, want = _bad_slab(B11)
+    with full_f32_matmul():
+        Y, L, info, _ = _kernel(B11, rhs, want_l)
+        bY, bL, binfo, _ = _kernel(bad, rhs, want_l)
+    assert binfo.tolist() == want and (info == 0).all()
+    ok = torch.tensor(want, device="cuda") == 0
+    assert torch.equal(bY[ok], Y[ok])
+    if want_l:
+        assert torch.equal(bL[ok], L[ok])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["W16-Mp768-Up512", "W43-Mp1280-Up960"])
+def test_kernel_bit_equal_between_runs_on_gpu(shape):
+    """Two calls on the same blocks give the same bits (no sum whose order
+    depends on which block runs which tile)."""
+    B11, rhs = _gpu_blocks(shape)
+    with full_f32_matmul():
+        Y1, L1, info1, _ = _kernel(B11, rhs, True)
+        Y2, L2, info2, _ = _kernel(B11, rhs, True)
+    assert torch.equal(Y1, Y2) and torch.equal(L1, L2)
+    assert torch.equal(info1, info2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [1, 7])
+def test_kernel_window_independent_of_slab_width_on_gpu(width):
+    """Windows 3 .. 3 + width of a 16-window slab, solved as a slab of
+    their own, are bit-equal to their rows of the whole slab's solve."""
+    B11, rhs = _gpu_blocks("W16-Mp768-Up512")
+    part = slice(3, 3 + width)
+    with full_f32_matmul():
+        Y, L, _, _ = _kernel(B11, rhs, True)
+        pY, pL, _, _ = _kernel(B11[part].contiguous(),
+                               rhs[part].contiguous(), True)
+    assert torch.equal(pY, Y[part]) and torch.equal(pL, L[part])
