@@ -8,7 +8,8 @@ Phases (each prints its evidence; any failure exits non-zero):
 
 1. device  -- needs torch.cuda; prints the card and its power limit.
 2. build   -- compiles the CUDA kernels (K1 gram, K2 gather, K3/K4, the
-              region tail's, the Cholesky solve's) from gauss_tpu_torch/csrc
+              region tail's, the Cholesky solve's, the gene path's) from
+              gauss_tpu_torch/csrc
               with nvcc for sm_90a; prints ptxas's registers, spills and
               shared memory per kernel and K1's dynamic shared memory.
 3. main    -- the bench workload: a 33KG-shaped panel (29 populations,
@@ -84,9 +85,21 @@ Phases (each prints its evidence; any failure exits non-zero):
               weights) and jepeg (one population), jepeg_region twice
               each; K2 launches at least once per gene bucket and is
               checked against its plain version on the path's own ids
-              (bit-equal, with its bound and yardstick); every gene
-              against the same call on a CPU engine (chisq and p-values
-              rtol 1e-9; df, geneid, top_categ, top_snp equal).
+              (bit-equal, with its bound and yardstick); gene_partials
+              and gene_stats_tail launch exactly once per bucket each
+              (gene_corr, the tail's correlation mode, never) and are
+              checked against their plain versions on each of the
+              path's buckets (partials and CorG bit-equal, CovU / WWt / U
+              within GENE_TAIL_RTOL / GENE_TAIL_ATOL normwise), timed
+              (CUDA events, median of 5) beside their bound (int8
+              operations at the int8 peak or float64 ones at 67 TFLOP/s,
+              or bytes at the HBM rate) and their plain versions, summed
+              over one call's buckets; the gene statistics on the card
+              (CUDA events), jepeg_region's wall, genes/s, and
+              torch.profiler's CUDA kernels over one jepeg_region (at most
+              GENE_KERNELS_PER_BUCKET a bucket); every gene against the
+              same call on a CPU engine (chisq and p-values rtol 1e-9;
+              df, geneid, top_categ, top_snp equal).
 9. probe7  -- the probe's own entry point (probes/probe7_int4.main: the
               TPU probe's int4 check, the largest resident blocks in
               clusters of 1, 8 and 16), whose K3 and K4 launch counts
@@ -116,8 +129,9 @@ Phases (each prints its evidence; any failure exits non-zero):
               first run.  One chunk's batch build, region call and kernels
               are timed apart.  Then analysis "qcat", "ld" (the first
               LD_CHUNKS chunks: its walls are the host's) and "jepeg"
-              (phase 8's annotation), each against the engine call of
-              phase 7, 6 or 8.  Per analysis: chunks, wall, rate,
+              (phase 8's annotation; the gene kernels once per bucket
+              each), each against the engine call of phase 7, 6 or 8.
+              Per analysis: chunks, wall, rate,
               per-chunk elapsed, peak device memory.
 11. stream -- the first STREAM_SNPS SNPs of the store at every subject,
               written as bgzf files (io/panel.write_panel), then the
@@ -149,7 +163,9 @@ Phases (each prints its evidence; any failure exits non-zero):
               qcat_region against phase 7 (qcat_m equal, r = t /
               sqrt(m - 3) within SAME_TOL), ld_region "i16tri" against
               phase 6 (one int16 step), jepegmix genes against phase 8
-              (rtol 1e-12: exact partials over the shards), impute_window
+              (rtol 1e-12: exact partials over the shards; gene_partials
+              once per bucket and shard, gene_stats_tail once per bucket
+              and window group), impute_window
               on the middle window against phase 12's and a 2-chunk
               GenomeRunner against phase 10's rows (MESH_TOL);
               impute-region --mesh 1x1 on phase 12's cache bit-equal to
@@ -170,8 +186,10 @@ Phases (each prints its evidence; any failure exits non-zero):
               per column, normwise (exact integer products, the same
               float64 combines; the CPU's float64 sqrt is not always
               correctly rounded, so the blocks differ by an ulp), walls
-              side by side.  No hand kernel runs there: the products are
-              torch matmuls, as gauss_tpu's are XLA's.
+              side by side.  jepeg and jepegmix's gene correlations run
+              gene_partials and gene_corr (once per bucket each, and
+              gene_stats_tail's statistics mode never: checked); the other
+              products are torch matmuls, as gauss_tpu's are XLA's.
 
 Phases 10 to 12 also hold K1 and K2 against their plain versions on each
 path's own launches, as phases 4, 6, 7 and 8 do for theirs: one chunk's
@@ -191,7 +209,8 @@ caller of the engine might: it must still be True at the end, and phase
 5's max|dZ| must stay at full-f32 size.
 
 Calls shorter than SHORT_MS (K2 on the gene buckets, K3 at the probe
-shape, K4, and their yardsticks) are timed twice: per call with CUDA
+shape, K4, and their yardsticks) and the gene kernels on each bucket
+are timed twice: per call with CUDA
 events, host included (cuda_ms), and on the device alone from
 torch.profiler's kernel records (device_ms), which names the kernels.
 
@@ -220,8 +239,6 @@ import time
 import numpy as np
 import pandas as pd
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -239,8 +256,8 @@ from gauss_tpu_torch.models.genome import (GenomeEngine,       # noqa: E402
                                            _fetch_flat)
 from gauss_tpu_torch.models.runner import GenomeRunner         # noqa: E402
 from gauss_tpu_torch.utils.timing import Tracer, device_trace  # noqa: E402
-from gauss_tpu_torch.ops import (_build, gather, gram,        # noqa: E402
-                                 region_tail)
+from gauss_tpu_torch.ops import (_build, gather, gene_stats,  # noqa: E402
+                                 gram, region_tail)
 from gauss_tpu_torch.probes import probe7_int4 as p7           # noqa: E402
 from gauss_tpu_torch.utils.testing import make_annotation      # noqa: E402
 from gauss_tpu_torch.ops.gram import ROW_TILE                  # noqa: E402
@@ -254,10 +271,12 @@ from gauss_tpu_torch.parallel.mesh import (group_width,       # noqa: E402
                                            make_mesh)
 from gauss_tpu_torch.utils.benchdata import (cached_panel,     # noqa: E402
                                              make_bench_input)
+from smoke_common import (GENE_REPS, GENE_SNPS, MAIN_SNPS,    # noqa: E402
+                          MEASURED_FRAC, STUDY_POP, IndexOf, cuda_ms,
+                          device_ms, gene_annotation, host_wall)
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CACHE = os.path.join(HERE, ".bench_cache")   # generated panels (gitignored)
-MEASURED_FRAC = 0.4
 WINDOW_BP = 1_000_000
 WING_BP = 500_000
 N_PIPE = 8
@@ -290,19 +309,13 @@ LD_CHUNKS = 3            # the runner's ld run covers this many chunks: its
 STREAM_SNPS = 6_000      # streamed panel: 4 windows, 2 chunks of 2
 STREAM_ZLIB_LEVEL = 1    # of the streamed panel's bgzf blocks: the Python
                          # writer's time is zlib's (level 6 took 26-28 s)
-N_GENES, GENE_SNPS = 280, 24   # ~6.5 genes per Mb over the 43 Mb region
-STUDY_POP = "CEU"        # jepeg's one population (the largest)
 PERCALL_GENES = 40       # phase 14's genes over the streamed panel's 4 Mb
 PERCALL_RTOL = 1e-12     # the per-call family, card against CPU, per
                          # column normwise (norm_rel): exact integer
                          # products, the same float64 combines; torch's
                          # CPU sqrt is an ulp off at times
-WARM_S = 0.05            # warm-up seconds before each timing
 SHORT_MS = 0.2           # calls shorter than this are also timed on the
                          # device alone (device_ms)
-PROFILE_MARGINS = (0.02, 0.2, 1.0)   # seconds of idle capture window kept
-                         # on both sides of a device_ms profile's calls,
-                         # per attempt
 TAIL_TOL = 1e-5          # the region tail's blocks (B11, [B21^T | Z1]),
                          # kernel against plain version on the same T1: f32
                          # sums of the same products in another order
@@ -314,11 +327,20 @@ SOLVE_TOL = 1e-5         # cholesky_solve against the library pair, Y and L
                          # blocked differently
 SOLVE_ACC = 2.0          # its error against a float64 solve of the same
                          # inputs, at most this times the library pair's
-# published peaks of one H100 SXM (dense int8 and TF32 tensor-core rates,
-# f32 outside the tensor cores, HBM3 rate)
+GENE_TAIL_RTOL = 1e-12   # CovU, WWt, U: kernel against plain version on
+GENE_TAIL_ATOL = 1e-13   # the card, normwise: float64 contractions with W
+                         # summed in another order (CorG itself bit-equal)
+GENE_KERNELS_PER_BUCKET = 12   # CUDA kernels a jepeg_region call may run
+                         # per gene bucket (torch.profiler): K2 and its
+                         # argsort, the two gene kernels, the results' cat
+# published peaks of one H100 SXM (dense int8, TF32 and f64 tensor-core
+# rates, f32 outside the tensor cores, HBM3 rate)
 INT8_OPS_PER_S = 1979e12
 TF32_FLOPS_PER_S = 495e12
 FP32_FLOPS_PER_S = 67e12
+# (f64 at the card's highest rate: the gene tail's elementwise combine
+# could use only the CUDA cores' 34 TFLOP/s, so its bound stays a least time)
+FP64_FLOPS_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
 #: the region tail's kernels, their sources and the reference code they
 #: replace (XLA at Precision.HIGHEST on the TPU; no Pallas kernel)
@@ -339,6 +361,20 @@ TAIL_KERNELS = {
                         "no Pallas counterpart: gauss_tpu/ops/window_kernel."
                         "py:1261 (build_resident_region_kernel's tail, z2 "
                         "and info, XLA at Precision.HIGHEST)"),
+}
+#: the gene path's kernels, their source and the reference code they
+#: replace (one jitted XLA program on the TPU; no Pallas kernel)
+GENE_KERNELS = {
+    "gene_partials": ("gauss_tpu_torch/csrc/gene_stats.cu",
+                      "no Pallas counterpart: gauss_tpu/core/genekernels.py:"
+                      "194-208 (_gene_stats_body's per-population f32 Grams "
+                      "and row sums, XLA; jitted in _gene_stats_unsharded "
+                      ":223)"),
+    "gene_stats_tail": ("gauss_tpu_torch/csrc/gene_stats.cu",
+                        "no Pallas counterpart: gauss_tpu/core/genekernels."
+                        "py:136-176, 210-219 (_corr_from_pop_partials, the "
+                        "mask, ridge and W contractions of _gene_stats_body,"
+                        " XLA)"),
 }
 #: kernel names of the library's Cholesky and triangular solve (cuSOLVER's
 #: potrf, cuBLAS's trsm and what they call): none may run in a region call
@@ -361,7 +397,7 @@ def log(msg):
 def reset_counts():
     gram.launches = 0
     gather.launches = 0
-    for counts in (p7.launches, region_tail.launches):
+    for counts in (p7.launches, region_tail.launches, gene_stats.launches):
         for k in counts:
             counts[k] = 0
 
@@ -369,7 +405,7 @@ def reset_counts():
 def read_counts():
     return {"weighted_gram_t1": gram.launches,
             "gather_rows": gather.launches, **p7.launches,
-            **region_tail.launches}
+            **region_tail.launches, **gene_stats.launches}
 
 
 def tail_launched(counts, what, per_call):
@@ -381,85 +417,10 @@ def tail_launched(counts, what, per_call):
                              f"rarely: {short}, want {per_call}")
 
 
-def cuda_ms(fn, reps):
-    """Median milliseconds of fn() on the card: one CUDA event pair per
-    call, the calls enqueued back to back and one synchronize at the end,
-    so that a call's host-side work overlaps the device work of the call
-    before it.  Warm-up calls run first for at least WARM_S seconds: a
-    kernel's first calls after other work can run slower than its
-    steady state."""
-    t = time.perf_counter()
-    while True:
-        fn()
-        torch.cuda.synchronize()
-        if time.perf_counter() - t >= WARM_S:
-            break
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for a, b in events:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
-
-
-def device_ms(fn, reps=50):
-    """(milliseconds per call on the device alone, {kernel short_name: ms
-    per call}): the CUDA kernels torch.profiler records over ``reps`` calls
-    enqueued back to back after a warm-up call, their host path left out.
-
-    A profile of well under a millisecond, taken minutes into the process,
-    can come back with no kernel record at all (seen on the H100 on the
-    two shortest profiles, K4 in clusters of 8 and torch._int_mm at 256 x
-    2048, 0.3 ms each; the profiles of 5 ms before and after them held
-    their records): the profiler keeps only records inside its capture
-    window.  So the calls sit PROFILE_MARGINS[0] seconds inside the
-    window on both sides, an empty profile is taken again with the next,
-    wider margin, and after the last it returns (None, {}): the number is
-    then reported as not measured, the check itself does not depend on
-    it."""
-    fn()
-    torch.cuda.synchronize()
-    for attempt, margin in enumerate(PROFILE_MARGINS):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            time.sleep(margin)
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-            time.sleep(margin)
-        kernels = {}
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA:
-                us = getattr(e, "self_device_time_total", None)
-                us = e.self_cuda_time_total if us is None else us
-                if us > 0:
-                    kernels[short_name(e.key)] = us / 1e3 / reps
-        if kernels:
-            return sum(kernels.values()), kernels
-        log(f"torch.profiler recorded no device time (profile "
-            f"{attempt + 1} of {len(PROFILE_MARGINS)}, margin {margin:g} s)")
-    return None, {}
-
-
-def short_name(kernel):
-    """A kernel's name without "void", an anonymous namespace or its
-    argument list, cut to 80 characters."""
-    k = kernel.replace("(anonymous namespace)::", "").removeprefix("void ")
-    depth = 0
-    for i, ch in enumerate(k):
-        depth += {"<": 1, ">": -1}.get(ch, 0)
-        if ch == "(" and depth == 0:
-            k = k[:i]
-            break
-    return k[:80]
-
-
 def device_times(fn, lib_fn):
     """device_ms of a kernel's wrapper and of its yardstick, as row keys."""
-    d, dk = device_ms(fn)
-    ld, lk = device_ms(lib_fn)
+    d, dk = device_ms(fn)[:2]
+    ld, lk = device_ms(lib_fn)[:2]
     if d is None or ld is None:
         log("device-only times not measured: torch.profiler kept no "
             "kernel record")
@@ -980,7 +941,7 @@ SOLVE_KERNELS = ("chol_solve_kernel",)
 def no_library_solve(label, fn):
     """One profiled region call: each of cholesky_solve's kernels ran and
     no kernel of the library's Cholesky or triangular solve did."""
-    _, kernels = device_ms(fn, reps=1)
+    kernels = device_ms(fn, reps=1).kernels
     if not kernels:
         log(f"{label}: profiled region call kept no kernel record; the "
             f"library check is not measured")
@@ -1112,17 +1073,6 @@ def k1_ms(run, Xa, Xb, a0, b0, na, nb, sym, reps=5):
     seg = segments(run)
     return cuda_ms(lambda: gram.weighted_gram_t1(Xa, Xb, *seg, a0, b0, na,
                                                  nb, sym), reps)
-
-
-def host_wall(fn, reps=3):
-    """Median host seconds of fn(), each call ending in a synchronize."""
-    walls = []
-    for _ in range(reps):
-        t = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    return statistics.median(walls)
 
 
 def same_bits(a, b):
@@ -1364,13 +1314,6 @@ def phase_qcat(engine, run, lo, hi, reps=5):
     return launches, dict(ms=dev_ms, k1_ms=kms, wall_s=wall,
                           max_dr=max_dr), checks, q
 
-class _IndexOf:
-    """What make_annotation reads of a panel: its index."""
-
-    def __init__(self, index):
-        self.index_df = index
-
-
 def gene_frames_agree(got, ref, rtol=GENE_RTOL):
     """(max relative difference of chisq and the p-values, whether df,
     geneid, top_categ and top_snp are equal) of two jepeg frames; inf
@@ -1391,21 +1334,167 @@ def gene_frames_agree(got, ref, rtol=GENE_RTOL):
     return rel, same
 
 
-def phase_jepeg(engine, reps=3):
+def gene_bucket_inputs(buckets, idx, Ws, zs):
+    """Panel row ids [N] and Wz [N, 7] (W^T, z; zero on pad rows) of
+    every bucket in gene_stats_resident's row layout (one device)."""
+    ids = genekernels._bucket_rows(buckets, idx)
+    Wz = np.zeros((len(ids), 7))
+    o = 0
+    for npad, batch in buckets:
+        for gi in batch:
+            n = len(idx[gi])
+            Wz[o:o + n, :6] = np.asarray(Ws[gi]).T
+            Wz[o:o + n, 6] = zs[gi]
+            o += npad
+    return ids, Wz
+
+
+def tail_flops(P, B, n, pooled):
+    """float64 operations gene_stats_tail needs: per pair and population
+    the combine's multiply-adds (pooled: one add), per pair the final
+    steps, the ridge and six W multiply-adds, per row and population the
+    std chain, per gene W W^T and W z."""
+    per_pair = P * (1 if pooled else 7) + 5 + 2 + 12
+    per_row = P * (2 if pooled else 8) + 3
+    return B * (n * n * per_pair + n * per_row + 2 * 42 * n)
+
+
+def _normwise_err(got, ref):
+    """(max |got - ref| on ref's finite entries, over max |ref| there);
+    inf unless the non-finite entries sit in the same places."""
+    fin = torch.isfinite(ref)
+    if not torch.equal(torch.isfinite(got), fin):
+        return float("inf"), 1.0
+    if not fin.any():
+        return 0.0, 0.0
+    return (float((got - ref)[fin].abs().max()),
+            float(ref[fin].abs().max()))
+
+
+def gene_checks(label, panel, buckets, idx, Ws, zs, sizes, wgts, lam,
+                reps=5):
+    """gene_partials and gene_stats_tail against their plain versions on
+    each of a jepeg path's own gene buckets (gathered by K2 as the path
+    gathers them): partials and CorG (gene_corr) bit-equal, CovU / WWt /
+    U within GENE_TAIL_RTOL / GENE_TAIL_ATOL normwise; each timed (CUDA
+    events, median of ``reps``) beside its plain version and its bound,
+    summed over the buckets (one jepeg_region's work).  No single PyTorch
+    call computes either: library_ms is None."""
+    dev = panel.device
+    ids, Wz = gene_bucket_inputs(buckets, idx, Ws, zs)
+    ids_d = torch.from_numpy(ids).to(dev)
+    Wz_d = torch.from_numpy(Wz).to(dev)
+    bounds = genekernels._stat_bounds(sizes, wgts)
+    P, cols = len(bounds) - 1, int(bounds[-1])
+    rows = {k: dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0,
+                    device_ms=0.0, ops=0.0, n_bytes=0.0, library_ms=None,
+                    buckets=[])
+            for k in GENE_KERNELS}
+    o = 0
+    for npad, batch in buckets:
+        B = len(batch)
+        bi = ids_d.narrow(0, o, B * npad)
+        bw = Wz_d.narrow(0, o, B * npad)
+        o += B * npad
+        Gb = genekernels._gather_genes(panel, bi, B, npad)
+        part = gene_stats.gene_partials(Gb, bounds)
+        with full_f32_matmul():
+            plain = gene_stats.gene_partials_plain(Gb, bounds)
+        p_err = max(float((a - b).abs().max()) for a, b in zip(part, plain))
+        p_equal = all(torch.equal(a, b) for a, b in zip(part, plain))
+        corr_equal = same_bits(
+            gene_stats.gene_corr(*part, sizes, wgts).cpu().numpy(),
+            gene_stats.gene_corr_plain(*part, sizes, wgts).cpu().numpy())
+        got = gene_stats.gene_stats_tail(*part, sizes, wgts, bi, bw, lam)
+        ref = gene_stats.gene_stats_tail_plain(*part, sizes, wgts, bi, bw,
+                                               lam)
+        errs = [_normwise_err(a, b) for a, b in zip(got, ref)]
+        t_err = max(d for d, _ in errs)
+        t_ok = all(d <= GENE_TAIL_RTOL * sc + GENE_TAIL_ATOL
+                   for d, sc in errs)
+        del got, ref, plain
+        pms = cuda_ms(lambda: gene_stats.gene_partials(Gb, bounds), reps)
+        with full_f32_matmul():
+            pplain = cuda_ms(lambda: gene_stats.gene_partials_plain(
+                Gb, bounds), reps)
+        tms = cuda_ms(lambda: gene_stats.gene_stats_tail(
+            *part, sizes, wgts, bi, bw, lam), reps)
+        tplain = cuda_ms(lambda: gene_stats.gene_stats_tail_plain(
+            *part, sizes, wgts, bi, bw, lam), reps)
+        # a bucket's launch is shorter than its host path: its time on the
+        # device alone too (None when the profiler keeps no record)
+        pdev = device_ms(lambda: gene_stats.gene_partials(Gb, bounds)).ms
+        tdev = device_ms(lambda: gene_stats.gene_stats_tail(
+            *part, sizes, wgts, bi, bw, lam)).ms
+        # partials: the block's real columns read once, the outputs written
+        # once; int8 multiply-adds of the Gram's lower triangle
+        p_ops = 2.0 * B * npad * (npad + 1) / 2 * cols
+        p_bytes = B * npad * cols + 4.0 * P * B * npad * (npad + 2)
+        # tail: the partials, ids and Wz read once, CovU / WWt / U written
+        t_flops = tail_flops(P, B, npad, wgts is None)
+        t_bytes = (4.0 * P * B * npad * (npad + 2) + 60.0 * B * npad
+                   + 8.0 * 78 * B)
+        for k, ms, dms, plain_ms, err, ops, nb, peak in (
+                ("gene_partials", pms, pdev, pplain, p_err, p_ops, p_bytes,
+                 INT8_OPS_PER_S),
+                ("gene_stats_tail", tms, tdev, tplain, t_err, t_flops,
+                 t_bytes, FP64_FLOPS_PER_S)):
+            r = rows[k]
+            b_ms = max(ops / peak, nb / HBM_BYTES_PER_S) * 1e3
+            r["ms"] += ms
+            r["plain_ms"] += plain_ms
+            r["bound_ms"] += b_ms
+            r["device_ms"] = (None if dms is None or r["device_ms"] is None
+                              else r["device_ms"] + dms)
+            r["ops"] += ops
+            r["n_bytes"] += nb
+            r["max_abs_err"] = max(r["max_abs_err"], err)
+            r["buckets"].append(dict(npad=npad, B=B, ms=ms, device_ms=dms,
+                                     plain_ms=plain_ms, bound_ms=b_ms))
+        log(f"gene kernels {label} bucket npad={npad} B={B} P={P} "
+            f"({cols} columns): gene_partials bit-equal={p_equal} "
+            f"{pms:.4f} ms per call, {fmt_ms(pdev)} on the device (plain "
+            f"{pplain:.3f} ms); gene_stats_tail CorG bit-equal={corr_equal},"
+            f" CovU/WWt/U max abs err {t_err:.3e} (rtol {GENE_TAIL_RTOL:g}, "
+            f"atol {GENE_TAIL_ATOL:g} normwise) {tms:.4f} ms per call, "
+            f"{fmt_ms(tdev)} on the device (plain {tplain:.3f} ms)")
+        if not (p_equal and corr_equal and t_ok):
+            raise AssertionError(f"gene kernels {label} (npad {npad}) "
+                                 f"disagree with their plain versions")
+        del Gb, part
+    for k, r in rows.items():
+        peak = INT8_OPS_PER_S if k == "gene_partials" else FP64_FLOPS_PER_S
+        r["bound_by"] = ("operations" if r["ops"] / peak
+                         >= r["n_bytes"] / HBM_BYTES_PER_S else "bytes")
+        log(f"{k} {label}, {len(buckets)} buckets (one jepeg_region's "
+            f"work): kernel {r['ms']:.4f} ms per call (CUDA events), "
+            f"{fmt_ms(r['device_ms'])} on the device alone "
+            f"(torch.profiler), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: {r['n_bytes'] / 1e6:.1f} MB, "
+            f"{r['ops'] / 1e9:.3f} G{'OP int8' if k == 'gene_partials' else 'FLOP f64'}) "
+            f"= {r['bound_ms'] / r['ms']:.1%} of bound; the torch passes it "
+            f"replaced (plain) {r['plain_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def fmt_ms(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def phase_jepeg(engine, reps=GENE_REPS):
     """prepare_genes -> jepeg_region on the main path's store and input:
     jepegmix with the main path's weights, then jepeg on one population,
-    jepeg_region twice each; every gene against a CPU engine's run."""
+    jepeg_region twice each (K2 once per bucket, gene_partials once per
+    bucket, gene_stats_tail once per bucket); every gene against a CPU
+    engine's run; each kernel against its plain version on the path's
+    own buckets; torch.profiler's kernel count per jepeg_region."""
     store = engine.store
     inp = make_bench_input(store, MEASURED_FRAC)
-    path = os.path.join(CACHE, f"annot_{len(store.index)}.txt")
-    os.makedirs(CACHE, exist_ok=True)
-    make_annotation(_IndexOf(store.index), path,
-                    n_genes=min(N_GENES, len(store.index) // (GENE_SNPS + 1)),
-                    snps_per_gene=GENE_SNPS)
-    annot = readers.read_annotation(path)
+    annot = gene_annotation(store.index, CACHE)
     cpu = GenomeEngine(store, device="cpu")
     pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
-    total = {"gather_rows": 0}
+    total = collections.Counter()
     out = {}
     for mode, kw in (("jepegmix", dict(pop_wgt=pop_wgt)),
                      ("jepeg", dict(study_pop=STUDY_POP))):
@@ -1423,20 +1512,31 @@ def phase_jepeg(engine, reps=3):
         idx, Ws, zs = pg._gene_inputs(gsel)
         buckets = genekernels._buckets([len(g) for g in idx],
                                        panel.shape[1], 1 << 26)
+        nb = len(buckets)
         log(f"jepeg ({mode}): {len(gsel)} genes ({len(pg.zs)} gene SNPs), "
-            f"{len(buckets)} buckets (sizes "
+            f"{nb} buckets (sizes "
             f"{[(npad, len(b)) for npad, b in buckets]}), panel "
             f"{tuple(panel.shape)} on the card; launches during "
             f"jepeg_region x2: {launches}")
-        if launches["gather_rows"] < 2 * len(buckets):
+        if launches["gather_rows"] < 2 * nb:
             raise AssertionError("K2 was not launched once per gene bucket")
-        total["gather_rows"] += launches["gather_rows"]
+        if launches["gene_partials"] != 2 * nb or \
+                launches["gene_stats_tail"] != 2 * nb or \
+                launches["gene_corr"]:
+            raise AssertionError("the gene kernels were not launched once "
+                                 "per gene bucket each, the tail in its "
+                                 "statistics mode")
+        total.update(launches)
 
         stats = lambda: genekernels.gene_stats_resident(
             panel, idx, Ws, zs, pg.pop_sizes, pg.wgts,
             lam=engine.settings.lambda_)
         dev_ms = cuda_ms(stats, reps)
         wall = host_wall(pg.jepeg_region, reps)
+        prof = device_ms(pg.jepeg_region, reps=1)
+        names = {k: round(n) for k, n in prof.counts.items()}
+        n_kernels = None if prof.ms is None else sum(names.values())
+        n_copies = None if prof.ms is None else round(prof.copies)
         t = time.perf_counter()
         ref = cpu.prepare_genes(inp, annot, **kw).jepeg_region()
         cpu_s = time.perf_counter() - t
@@ -1450,14 +1550,30 @@ def phase_jepeg(engine, reps=3):
             f"engine ({cpu_s:.1f}s): max rel diff of chisq and p-values "
             f"{rel:.3e} (tol {GENE_RTOL:g}), df/geneid/top_categ/top_snp "
             f"equal={same}")
+        if n_kernels is None:
+            log(f"jepeg ({mode}): kernels per jepeg_region not measured "
+                f"(torch.profiler kept no device record)")
+        else:
+            log(f"jepeg ({mode}): torch.profiler over one jepeg_region: "
+                f"{n_kernels} CUDA kernels ({n_kernels / nb:.1f} per bucket,"
+                f" limit {GENE_KERNELS_PER_BUCKET}), {n_copies} copies / "
+                f"sets; by kernel {names}")
         if not (rel <= GENE_RTOL and same and tested > 0):
             raise AssertionError(f"jepeg ({mode}) on the card disagrees "
                                  f"with the CPU engine")
+        if n_kernels is not None and \
+                n_kernels > GENE_KERNELS_PER_BUCKET * nb:
+            raise AssertionError(f"jepeg ({mode}): {n_kernels} CUDA kernels "
+                                 f"for {nb} buckets")
         ids = genekernels._bucket_rows(buckets, idx)
         out[mode] = dict(ms=dev_ms, wall_s=wall, genes=len(gsel),
-                         buckets=len(buckets), max_rel=rel, frame=res,
-                         k2=k2_check(f"jepeg {mode} buckets", panel, ids))
-    return total, out, annot
+                         buckets=nb, max_rel=rel, frame=res,
+                         kernels_per_call=n_kernels,
+                         k2=k2_check(f"jepeg {mode} buckets", panel, ids),
+                         **gene_checks(f"jepeg {mode}", panel, buckets, idx,
+                                       Ws, zs, pg.pop_sizes, pg.wgts,
+                                       engine.settings.lambda_))
+    return dict(total), out, annot
 
 
 def impute_diff(got, ref, what):
@@ -1751,8 +1867,13 @@ def phase_runner_analyses(engine, lo, hi, tmp, ld_ref, qcat_ref, gene_ref,
     log(f"runner jepeg against phase 8's jepeg_region: max rel diff "
         f"{rel:.3e} (tol {GENE_RTOL:g}), df/geneid/top_categ/top_snp "
         f"equal={same}")
-    if not (rel <= GENE_RTOL and same) or counts["gather_rows"] < 1:
-        raise AssertionError("runner jepeg disagrees with jepeg_region")
+    if not (rel <= GENE_RTOL and same) or counts["gather_rows"] < 1 or \
+            counts["gene_partials"] < 1 or \
+            counts["gene_partials"] != counts["gene_stats_tail"] or \
+            counts["gene_corr"]:
+        raise AssertionError("runner jepeg disagrees with jepeg_region or "
+                             "did not launch the gene kernels once per "
+                             "bucket, the tail in its statistics mode")
     # K2 on the gene buckets of one chunk (genes by their first SNP)
     pg = rj._prepared()
     cs = max(rj.chunks.values(),
@@ -2209,8 +2330,12 @@ def phase_mesh(dev, store, res, lo, hi, region_ms, refs, tmp, stream):
     rel, same = gene_frames_agree(genes, refs["genes"], MESH_GENE_RTOL)
     log(f"mesh 2x2 jepegmix against phase 8's: {len(genes)} genes, max "
         f"rel diff {rel:.3e} (tol {MESH_GENE_RTOL:g}), df/geneid/top_categ/"
-        f"top_snp equal={same}; launches {counts}")
-    if not (rel <= MESH_GENE_RTOL and same) or counts["gather_rows"] < 2:
+        f"top_snp equal={same}; launches {counts} (gene_partials once per "
+        f"bucket and shard, gene_stats_tail once per bucket and window "
+        f"group: 2 x the tail's)")
+    if not (rel <= MESH_GENE_RTOL and same) or counts["gather_rows"] < 2 \
+            or counts["gene_stats_tail"] < 2 or counts["gene_corr"] \
+            or counts["gene_partials"] != 2 * counts["gene_stats_tail"]:
         raise AssertionError("mesh jepeg disagrees with phase 8")
     del genes
 
@@ -2332,7 +2457,7 @@ def phase_percall(dev, store, tmp, pf, zfile):
     wgt_df = pd.DataFrame({"pop": store.desc.pops,
                            "wgt": 1.0 / store.desc.num_pops})
     annot = os.path.join(tmp, "percall_annot.txt")
-    make_annotation(_IndexOf(store.index.iloc[:n]), annot,
+    make_annotation(IndexOf(store.index.iloc[:n]), annot,
                     n_genes=PERCALL_GENES, snps_per_gene=GENE_SNPS)
     files = (zfile, pf.index_file, pf.data_file, pf.pop_desc_file)
     win = (22, lo, hi, WING_BP)
@@ -2383,7 +2508,14 @@ def phase_percall(dev, store, tmp, pf, zfile):
     counts = read_counts()
     log(f"phase 14: {len(calls)} analyses on [{lo}, {hi}] (wings "
         f"{WING_BP}), launches {counts} (the per-call family runs plain "
-        f"torch products, no hand kernel); {time.perf_counter() - t0:.1f}s")
+        f"torch products; jepeg and jepegmix's gene correlations "
+        f"gene_partials and gene_corr, once per bucket each); "
+        f"{time.perf_counter() - t0:.1f}s")
+    if counts["gene_partials"] < 2 or counts["gene_stats_tail"] or \
+            counts["gene_partials"] != counts["gene_corr"]:
+        raise AssertionError("per-call jepeg / jepegmix did not launch "
+                             "gene_partials and gene_corr (the tail's "
+                             "correlation mode) once per bucket")
 
 
 def phase_probe_path():
@@ -2572,7 +2704,7 @@ def phase_probe7(dev):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--snps", type=int, default=64_000,
+    ap.add_argument("--snps", type=int, default=MAIN_SNPS,
                     help="region length in SNPs (default: the bench "
                          "workload, 64,000)")
     args = ap.parse_args()
@@ -2644,10 +2776,12 @@ def main():
         "resident_rowsum": ("gauss_tpu_torch/csrc/probe7_int4.cu",
                             "probes/probe7_int4.py:71"),
         **TAIL_KERNELS,
+        **GENE_KERNELS,
     }
     # ms / plain_ms / bound_ms / library_ms of each row: the impute batch
-    # (K1, K2), K1's yardstick shape (K3), int8 in clusters of 8 (K4); the
-    # other checks beside, by path
+    # (K1, K2), K1's yardstick shape (K3), int8 in clusters of 8 (K4), one
+    # jepegmix jepeg_region's buckets (the gene kernels); the other checks
+    # beside, by path
     checked = {
         "weighted_gram_t1": {"impute": kernels["weighted_gram_t1"],
                              "ld": ld_checks["weighted_gram_t1"],
@@ -2665,6 +2799,8 @@ def main():
         "cholesky_solve": {"impute": kernels["cholesky_solve"],
                            "qcat": qcat_checks["cholesky_solve"]},
         "impute_finalize": {"impute": kernels["impute_finalize"]},
+        **{k: {f"jepeg {m}": r[k] for m, r in jepeg.items()}
+           for k in GENE_KERNELS},
     }
     # the later paths' own batches (runner chunks, one window, a streamed
     # chunk, the command line's regions)
@@ -2675,16 +2811,19 @@ def main():
            "gather_rows": kernels["gather_rows"],
            "int4_dot": k3["K1 yardstick 55040x1280x34176"],
            "resident_rowsum": k4["int8 cluster 8"],
-           **{k: kernels[k] for k in TAIL_KERNELS}}
+           **{k: kernels[k] for k in TAIL_KERNELS},
+           **{k: jepeg["jepegmix"][k] for k in GENE_KERNELS}}
     by_path = {"impute": launches, "ld": ld_launches, "qcat": qcat_launches,
                "jepeg": jepeg_launches, **runner_launches,
                "impute_window": window_launches, "streaming": stream_launches,
                **cli_launches, **mesh_launches, "probe7": probe_launches}
     # the path each row's "launches" counts: the main path for K1, K2 and
-    # the region tail's kernels, the probe for K3 and K4
+    # the region tail's kernels, the probe for K3 and K4, phase 8's jepeg
+    # path (jepegmix and jepeg, two calls each) for the gene kernels
     own = {"weighted_gram_t1": launches, "gather_rows": launches,
            "int4_dot": probe_launches, "resident_rowsum": probe_launches,
-           **dict.fromkeys(TAIL_KERNELS, launches)}
+           **dict.fromkeys(TAIL_KERNELS, launches),
+           **dict.fromkeys(GENE_KERNELS, jepeg_launches)}
     extra = ("product_ms", "product_bound_ms", "pack_ms", "pack_bound_ms",
              "device_ms", "library_device_ms")
     rows = []

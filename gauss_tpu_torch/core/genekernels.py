@@ -2,11 +2,13 @@
 
 Genes are independent small problems (the reference loops them serially,
 src/jepeg.cpp:114-131).  Here genes are padded into power-of-two size
-buckets and each bucket's SNP x SNP statistics run as batched products
-[B, n, S] x [B, S, n] -> [B, n, n]: exact integer sufficient statistics
-per population in float32 (dosages 0..2, so every partial sum stays an
-integer below 2^24 while 4 m_k < 2^24), combined in float64 in the
-reference's population order (``_corr_from_pop_partials``).
+buckets and each bucket's SNP x SNP statistics are batched: exact
+integer sufficient statistics per population in float32 (dosages 0..2,
+so every partial sum stays an integer below 2^24 while 4 m_k < 2^24),
+combined in float64 in the reference's population order.  Both steps are
+``ops/gene_stats``: ``gene_partials`` (one launch per bucket and subject
+shard on a card) and ``gene_corr`` / ``gene_stats_tail`` (one per
+bucket).
 
 Two paths:
 
@@ -17,8 +19,8 @@ Two paths:
   rows gathered by K2 (``ops/gather.py``) from the panel resident on the
   engine's device, one gather per bucket, the per-gene category
   statistics of jepeg computed there.  Pad rows use K2's -1 sentinel (zero
-  rows) and are masked with ``torch.where``: a pad row's NaN never reaches
-  CovU, a NaN among a gene's real SNPs still propagates.
+  rows) and their pairs are masked by a select: a pad row's NaN never
+  reaches CovU, a NaN among a gene's real SNPs still propagates.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 
 from . import stats
 from .stats import full_f32_matmul
+from ..ops import gene_stats
 from ..ops.gather import gather_rows
 
 
@@ -69,60 +72,6 @@ def _stat_bounds(pop_sizes, wgts) -> np.ndarray:
     return stats.segment_bounds(pop_sizes)
 
 
-def _pop_partials(Gb: torch.Tensor, bounds: np.ndarray):
-    """Per-population C [P, B, n, n], S [P, B, n], Q [P, B, n] of int8
-    gene blocks [B, n, S] (columns past bounds[-1] never read): exact
-    integers in float32."""
-    g = Gb.to(torch.float32)
-    Cs, Ss, Qs = [], [], []
-    for k in range(len(bounds) - 1):
-        gk = g[:, :, int(bounds[k]):int(bounds[k + 1])]
-        Cs.append(gk @ gk.transpose(1, 2))
-        Ss.append(gk.sum(dim=2))
-        Qs.append((gk * gk).sum(dim=2))
-    return torch.stack(Cs), torch.stack(Ss), torch.stack(Qs)
-
-
-def _corr_from_pop_partials(C, S, Q, true_sizes, wgts) -> torch.Tensor:
-    """Gene correlation matrices [B, n, n] float64 from per-population
-    partials: pooled CalCor (wgts None) or the CalWgtCov-based
-    correlation, accumulated in the reference's population order
-    (src/util.cpp:49-70, 103-124)."""
-    f64 = dict(dtype=torch.float64, device=C.device)
-    if wgts is None:
-        n = float(sum(int(x) for x in true_sizes))
-        C0 = C.sum(dim=0).to(torch.float64)
-        s64 = S.sum(dim=0).to(torch.float64)
-        q64 = Q.sum(dim=0).to(torch.float64)
-        numer = n * C0 - s64[:, :, None] * s64[:, None, :]
-        d = torch.sqrt(n * q64 - s64 * s64)
-        return numer / (d[:, :, None] * d[:, None, :])
-    m = np.asarray(true_sizes, dtype=np.float64)
-    w = np.asarray(wgts, dtype=np.float64)
-    factor = m / (m - 1.0)
-    B, n = C.shape[1], C.shape[2]
-    cov = torch.zeros((B, n, n), **f64)
-    mimj = torch.zeros((B, n, n), **f64)
-    mi = torch.zeros((B, n), **f64)
-    var = torch.zeros((B, n), **f64)
-    vmimj = torch.zeros((B, n), **f64)
-    vmi = torch.zeros((B, n), **f64)
-    for k in range(len(m)):
-        wf, mk, wk = float(w[k] * factor[k]), float(m[k]), float(w[k])
-        Ck = C[k].to(torch.float64)
-        s = S[k].to(torch.float64)
-        q = Q[k].to(torch.float64)
-        cov = cov + wf * (mk * Ck - s[:, :, None] * s[:, None, :])
-        mimj = mimj + (wk * (s / mk))[:, :, None] * (s / mk)[:, None, :]
-        mi = mi + wk * (s / mk)
-        var = var + wf * (mk * q - s * s)
-        vmimj = vmimj + (wk * (s / mk)) * (s / mk)
-        vmi = vmi + wk * (s / mk)
-    cov = (cov + mimj) - mi[:, :, None] * mi[:, None, :]
-    std = torch.sqrt((var + vmimj) - vmi * vmi)
-    return cov / (std[:, :, None] * std[:, None, :])
-
-
 def gene_corr_matrices(
     gene_G: List[np.ndarray],
     pop_sizes: Sequence[int],
@@ -140,14 +89,14 @@ def gene_corr_matrices(
     out: List[Optional[np.ndarray]] = [None] * len(gene_G)
     for npad, batch in _buckets([g.shape[0] for g in gene_G], S,
                                 max_batch_elems):
-        Gb = np.zeros((len(batch), npad, S), dtype=np.int8)
+        # rows padded to a multiple of 16 bytes, as the kernel reads them
+        Gb = np.zeros((len(batch), npad, -(-S // 16) * 16), dtype=np.int8)
         for bi, gi in enumerate(batch):
-            Gb[bi, :gene_G[gi].shape[0]] = gene_G[gi]
+            Gb[bi, :gene_G[gi].shape[0], :S] = gene_G[gi]
         with full_f32_matmul():
-            partials = _pop_partials(torch.from_numpy(Gb).to(device),
-                                     bounds)
-        R = _corr_from_pop_partials(*partials, pop_sizes,
-                                    wgts).cpu().numpy()
+            partials = gene_stats.gene_partials(
+                torch.from_numpy(Gb).to(device), bounds)
+        R = gene_stats.gene_corr(*partials, pop_sizes, wgts).cpu().numpy()
         for bi, gi in enumerate(batch):
             n = gene_G[gi].shape[0]
             out[gi] = R[bi, :n, :n]
@@ -205,8 +154,10 @@ def gene_stats_resident(
     its first sum(pop_sizes) columns the selected populations), exact
     per-population partials, the float64 CorG with the 1 + lambda ridge
     diagonal (src/gene.cpp:569-586), then U = W z, CovU = W CorG W^T and
-    WWt = W W^T (src/gene.cpp:594-648).  The host keeps only the k <= 6
-    pruning and chi-square (src/jepegmix.cpp:122-139).
+    WWt = W W^T (src/gene.cpp:594-648): per bucket one K2 gather and one
+    ``gene_partials`` per subject shard, one ``gene_stats_tail``
+    (``ops/gene_stats``).  The host keeps only the k <= 6 pruning and
+    chi-square (src/jepegmix.cpp:122-139).
 
     With a mesh, G_dev is one tuple of subject-shard panels per window
     group (parallel/mesh.shard_columns order, local population widths
@@ -258,30 +209,19 @@ def gene_stats_resident(
             B = len(batch)
             if B == 0:
                 continue
-            Wb = Wz[o:o + B * npad, :6].reshape(B, npad, 6).transpose(1, 2)
-            zb = Wz[o:o + B * npad, 6].reshape(B, npad)
             partials = None
             for p in panels:
-                idx = ids_dev[p.device][o:o + B * npad]
+                idx = ids_dev[p.device].narrow(0, o, B * npad)
                 with full_f32_matmul():  # the f32 partials: exact integers
-                    part = _pop_partials(_gather_genes(p, idx, B, npad),
-                                         bounds)
+                    part = gene_stats.gene_partials(
+                        _gather_genes(p, idx, B, npad), bounds)
                 partials = part if partials is None else tuple(
                     a + b.to(lead) for a, b in zip(partials, part))
-            real = torch.from_numpy(ids[o:o + B * npad] >= 0).to(
-                lead).reshape(B, npad)
+            outs.append(gene_stats.gene_stats_tail(
+                *partials, pop_sizes, wgts,
+                ids_dev[lead].narrow(0, o, B * npad),
+                Wz.narrow(0, o, B * npad), lam))
             o += B * npad
-            CorG = _corr_from_pop_partials(*partials, pop_sizes, wgts)
-            CorG = torch.where(real[:, :, None] & real[:, None, :], CorG,
-                               0.0)
-            # the ridge diagonal as the reference writes it: a real SNP's
-            # NaN diagonal stays NaN (NaN * 0)
-            eye = torch.eye(npad, dtype=torch.float64, device=lead)
-            CorG = CorG * (1.0 - eye) + (1.0 + lam) * eye
-            WCor = torch.einsum("bkn,bnm->bkm", Wb, CorG)
-            outs.append((torch.einsum("bkm,bjm->bkj", WCor, Wb),
-                         torch.einsum("bkn,bjn->bkj", Wb, Wb),
-                         torch.einsum("bkn,bn->bk", Wb, zb)))
         if not outs:
             continue
         CovU, WWt, U = (torch.cat(x).cpu().numpy() for x in zip(*outs))
@@ -313,11 +253,11 @@ def gene_corr_resident(
     o = 0
     for npad, batch in buckets:
         B = len(batch)
-        Gb = _gather_genes(G_dev, ids[o:o + B * npad], B, npad)
+        Gb = _gather_genes(G_dev, ids.narrow(0, o, B * npad), B, npad)
         o += B * npad
         with full_f32_matmul():
-            partials = _pop_partials(Gb, bounds)
-        mats.append(_corr_from_pop_partials(*partials, pop_sizes, wgts))
+            partials = gene_stats.gene_partials(Gb, bounds)
+        mats.append(gene_stats.gene_corr(*partials, pop_sizes, wgts))
     out: List[Optional[np.ndarray]] = [None] * len(gene_idx)
     for (npad, batch), R in zip(buckets, mats):
         R = R.cpu().numpy()

@@ -10,6 +10,8 @@ loads the existing build.  A failed build raises with nvcc's output;
 nothing falls back to the plain versions.
 
 Nothing here runs at import time: ``library()`` builds on first use.
+The wrappers take the library for a launch from ``kernel_library`` and
+pass pointers (``ptr``) and the current stream (``stream``) to it.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import shutil
 import subprocess
 import time
 from typing import Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC_DIR = os.path.join(_PKG, "csrc")
@@ -94,6 +98,19 @@ _SIGNATURES = {
     "gauss_chol_solve_flags": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     # (*blocks_per_sm)
     "gauss_chol_solve_smem": [ctypes.POINTER(ctypes.c_int)],
+    # gene_stats: (X, S, B, n, P, *bounds, C, Ssum, Q, stream)
+    "gauss_gene_partials": [_P, ctypes.c_longlong, ctypes.c_int,
+                            ctypes.c_int, ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P],
+    # (n): tail tiles per gene
+    "gauss_gene_tail_tiles": [ctypes.c_int],
+    # (C, S, Q, P, B, n, pooled, *consts, npool, ridge, ids, Wz, out0,
+    #  out1, out2, scratch, tickets, stats, stream)
+    "gauss_gene_tail": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int,
+                        ctypes.POINTER(ctypes.c_double), ctypes.c_double,
+                        ctypes.c_double, _P, _P, _P, _P, _P, _P, _P,
+                        ctypes.c_int, _P],
 }
 
 
@@ -190,3 +207,26 @@ def check(err: int, what: str) -> None:
     if err != 0:
         msg = library().gauss_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def kernel_library(name: str, dev: torch.device, tensors) -> ctypes.CDLL:
+    """The kernel library for a launch on ``dev``: a CUDA device, dense
+    inputs (None entries skipped).  Anything else raises; nothing falls
+    back."""
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    lib = library()
+    for t in tensors:
+        if t is not None and not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous inputs")
+    return lib
+
+
+def ptr(t: Optional[torch.Tensor]) -> int:
+    """A tensor's device address; 0 for None."""
+    return 0 if t is None else t.data_ptr()
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream."""
+    return torch.cuda.current_stream(dev).cuda_stream

@@ -154,26 +154,6 @@ def _check(name, tensors, dtypes=None):
     return devs.pop()
 
 
-def _kernel_device(name, dev, tensors):
-    """The kernel library for a launch on ``dev``: a CUDA device, dense
-    inputs.  Anything else raises; nothing falls back."""
-    if dev.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {dev}")
-    lib = _build.library()
-    for t in tensors:
-        if t is not None and not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous inputs")
-    return lib
-
-
-def _ptr(t: Optional[torch.Tensor]) -> int:
-    return 0 if t is None else t.data_ptr()
-
-
-def _stream(dev) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 def _pack_scratch(lib, n_tiles: int, P: int, pooled: bool, dev):
     """The kernels' packed operands of ``n_tiles`` 64-row band tiles: each
     tile's rank-P panels [1 or 2, P, 64], then its rows' std, mi and mask
@@ -205,7 +185,7 @@ def corr_mm(T1: torch.Tensor, Spm: torch.Tensor, Mum: torch.Tensor,
     if dev.type == "cpu":
         return corr_mm_plain(T1, Spm, Mum, m_t0, m_mask, alpha, w, diag)
     ins = (T1, Spm, Mum, m_mask, alpha, w, m_t0)
-    lib = _kernel_device("corr_mm", dev, ins)
+    lib = _build.kernel_library("corr_mm", dev, ins)
     B, Mp, P = T1.shape[0], T1.shape[-1], Spm.shape[1]
     _tiles("corr_mm", Mp)
     if T1.shape != (B, Mp, Mp) or m_mask.shape != (B, Mp) \
@@ -221,10 +201,11 @@ def corr_mm(T1: torch.Tensor, Spm: torch.Tensor, Mum: torch.Tensor,
     with torch.cuda.device(dev):
         err = lib.gauss_region_corr_mm(
             T1.data_ptr(), Spm.data_ptr(), Mum.data_ptr(), m_t0.data_ptr(),
-            Spm.shape[0], m_mask.data_ptr(), alpha.data_ptr(), _ptr(w), P, B,
-            Mp, float(diag), int(w is None),
+            Spm.shape[0], m_mask.data_ptr(), alpha.data_ptr(), _build.ptr(w),
+            P, B, Mp, float(diag), int(w is None),
             int(torch.backends.cuda.matmul.allow_tf32), std.data_ptr(),
-            _ptr(mi), pack.data_ptr(), out.data_ptr(), _stream(dev))
+            _build.ptr(mi), pack.data_ptr(), out.data_ptr(),
+            _build.stream(dev))
     _build.check(err, "corr_mm")
     launches["corr_mm"] += 1
     return out, std, mi
@@ -251,7 +232,7 @@ def corr_um_rhs(T1: torch.Tensor, Spu: torch.Tensor, Muu: torch.Tensor,
     if dev.type == "cpu":
         return corr_um_rhs_plain(T1, Spu, Muu, Vu, u_t0, Spm, Mum, m_t0,
                                  std_m, mi_m, u_mask, m_mask, z1, alpha, w)
-    lib = _kernel_device("corr_um_rhs", dev, ins)
+    lib = _build.kernel_library("corr_um_rhs", dev, ins)
     B, Up, Mp = T1.shape
     P = Spm.shape[1]
     _tiles("corr_um_rhs", Mp, Up)
@@ -269,11 +250,11 @@ def corr_um_rhs(T1: torch.Tensor, Spu: torch.Tensor, Muu: torch.Tensor,
         err = lib.gauss_region_corr_um_rhs(
             T1.data_ptr(), Spu.data_ptr(), Muu.data_ptr(), Vu.data_ptr(),
             u_t0.data_ptr(), Spu.shape[0], Spm.data_ptr(), Mum.data_ptr(),
-            m_t0.data_ptr(), Spm.shape[0], std_m.data_ptr(), _ptr(mi_m),
+            m_t0.data_ptr(), Spm.shape[0], std_m.data_ptr(), _build.ptr(mi_m),
             u_mask.data_ptr(), m_mask.data_ptr(), z1.data_ptr(),
-            alpha.data_ptr(), _ptr(w), P, B, Mp, Up, int(w is None),
+            alpha.data_ptr(), _build.ptr(w), P, B, Mp, Up, int(w is None),
             int(torch.backends.cuda.matmul.allow_tf32), scratch.data_ptr(),
-            out.data_ptr(), _stream(dev))
+            out.data_ptr(), _build.stream(dev))
     _build.check(err, "corr_um_rhs")
     launches["corr_um_rhs"] += 1
     return out.transpose(1, 2)
@@ -292,7 +273,7 @@ def impute_finalize(Yall: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
                          f"window (strides {tuple(Yall.stride())})")
     if dev.type == "cpu":
         return impute_finalize_plain(Yall, bad)
-    lib = _kernel_device("impute_finalize", dev, (bad,))
+    lib = _build.kernel_library("impute_finalize", dev, (bad,))
     B, Mp, Up1 = Yall.shape
     if bad.shape != (B,) or Up1 < 1:
         raise ValueError("impute_finalize: inconsistent shapes")
@@ -302,7 +283,7 @@ def impute_finalize(Yall: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
             Yall.data_ptr(), Yall.stride(0), Yall.stride(2), bad.data_ptr(),
             B, Mp, Up1 - 1,
             int(torch.backends.cuda.matmul.allow_tf32), out.data_ptr(),
-            _stream(dev))
+            _build.stream(dev))
     _build.check(err, "impute_finalize")
     launches["impute_finalize"] += 1
     return out
@@ -326,7 +307,7 @@ def cholesky_solve(B11: torch.Tensor, rhs: torch.Tensor, want_l: bool = False):
     dev = _check("cholesky_solve", (B11, rhs))
     if dev.type == "cpu":
         return cholesky_solve_plain(B11, rhs, want_l)
-    lib = _kernel_device("cholesky_solve", dev, (B11,))
+    lib = _build.kernel_library("cholesky_solve", dev, (B11,))
     if B11.dim() != 3 or rhs.dim() != 3:
         raise ValueError("cholesky_solve: B11 and rhs must be [B, Mp, .]")
     B, Mp, K = rhs.shape
@@ -346,7 +327,7 @@ def cholesky_solve(B11: torch.Tensor, rhs: torch.Tensor, want_l: bool = False):
         err = lib.gauss_chol_solve(
             B11.data_ptr(), rhs.data_ptr(), flags.data_ptr(), B, Mp, K,
             int(want_l), int(torch.backends.cuda.matmul.allow_tf32),
-            _stream(dev))
+            _build.stream(dev))
     _build.check(err, "cholesky_solve")
     launches["cholesky_solve"] += 1
     return rhs, (B11 if want_l else None), flags[:B]

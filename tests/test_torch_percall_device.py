@@ -28,6 +28,7 @@ import gauss_tpu_torch
 from gauss_tpu.utils import testing as gtest
 from gauss_tpu_torch import cli as t_cli
 from gauss_tpu_torch.core import genekernels, ldkernels, stats
+from gauss_tpu_torch.ops import gene_stats
 from gauss_tpu_torch.io import readers as t_readers
 from gauss_tpu_torch.models import ancestry as t_anc
 from gauss_tpu_torch.models import genome as t_genome
@@ -190,7 +191,7 @@ def test_cli_device_only_where_correlations_run(capsys):
 
 
 SPIES = [(stats, "pop_cross_products"), (stats, "pooled_corr_matrix"),
-         (stats, "per_pop_corr_matrices"), (genekernels, "_pop_partials")]
+         (stats, "per_pop_corr_matrices"), (gene_stats, "gene_partials")]
 
 
 @pytest.mark.parametrize("name", ["distmix", "dist", "compute_ld",
