@@ -94,7 +94,14 @@ Phases (each prints its evidence; any failure exits non-zero):
               (CUDA events, median of 5) beside their bound (int8
               operations at the int8 peak or float64 ones at 67 TFLOP/s,
               or bytes at the HBM rate) and their plain versions, summed
-              over one call's buckets; the gene statistics on the card
+              over one call's buckets, and per bucket on the device alone
+              beside its bound and an empty launch's device time; the
+              same checks on a synthetic bucket of SYNTH_GENES genes at
+              n = SYNTH_NPAD (64 x 64 tail tiles through the ticket and
+              scratch path, 32 x 32 partial tiles off the diagonal) at
+              jepegmix's P; gene_partials' SASS (IMMA in every
+              instantiation; its shared-memory loads before the last
+              IMMA counted); the gene statistics on the card
               (CUDA events), jepeg_region's wall, genes/s, and
               torch.profiler's CUDA kernels over one jepeg_region (at most
               GENE_KERNELS_PER_BUCKET a bucket); every gene against the
@@ -330,6 +337,7 @@ SOLVE_ACC = 2.0          # its error against a float64 solve of the same
 GENE_TAIL_RTOL = 1e-12   # CovU, WWt, U: kernel against plain version on
 GENE_TAIL_ATOL = 1e-13   # the card, normwise: float64 contractions with W
                          # summed in another order (CorG itself bit-equal)
+SYNTH_GENES, SYNTH_NPAD = 6, 128   # phase 8's synthetic bucket
 GENE_KERNELS_PER_BUCKET = 12   # CUDA kernels a jepeg_region call may run
                          # per gene bucket (torch.profiler): K2 and its
                          # argsort, the two gene kernels, the results' cat
@@ -1372,14 +1380,16 @@ def _normwise_err(got, ref):
 
 
 def gene_checks(label, panel, buckets, idx, Ws, zs, sizes, wgts, lam,
-                reps=5):
+                reps=5, floor_ms=None):
     """gene_partials and gene_stats_tail against their plain versions on
     each of a jepeg path's own gene buckets (gathered by K2 as the path
     gathers them): partials and CorG (gene_corr) bit-equal, CovU / WWt /
     U within GENE_TAIL_RTOL / GENE_TAIL_ATOL normwise; each timed (CUDA
-    events, median of ``reps``) beside its plain version and its bound,
-    summed over the buckets (one jepeg_region's work).  No single PyTorch
-    call computes either: library_ms is None."""
+    events, median of ``reps``; on the device alone, per bucket beside its
+    bound and ``floor_ms``, an empty launch's device time) beside its
+    plain version and its bound, summed over the buckets (one
+    jepeg_region's work).  No single PyTorch call computes either:
+    library_ms is None."""
     dev = panel.device
     ids, Wz = gene_bucket_inputs(buckets, idx, Ws, zs)
     ids_d = torch.from_numpy(ids).to(dev)
@@ -1434,13 +1444,14 @@ def gene_checks(label, panel, buckets, idx, Ws, zs, sizes, wgts, lam,
         t_flops = tail_flops(P, B, npad, wgts is None)
         t_bytes = (4.0 * P * B * npad * (npad + 2) + 60.0 * B * npad
                    + 8.0 * 78 * B)
+        bms = {}
         for k, ms, dms, plain_ms, err, ops, nb, peak in (
                 ("gene_partials", pms, pdev, pplain, p_err, p_ops, p_bytes,
                  INT8_OPS_PER_S),
                 ("gene_stats_tail", tms, tdev, tplain, t_err, t_flops,
                  t_bytes, FP64_FLOPS_PER_S)):
             r = rows[k]
-            b_ms = max(ops / peak, nb / HBM_BYTES_PER_S) * 1e3
+            b_ms = bms[k] = max(ops / peak, nb / HBM_BYTES_PER_S) * 1e3
             r["ms"] += ms
             r["plain_ms"] += plain_ms
             r["bound_ms"] += b_ms
@@ -1451,13 +1462,21 @@ def gene_checks(label, panel, buckets, idx, Ws, zs, sizes, wgts, lam,
             r["max_abs_err"] = max(r["max_abs_err"], err)
             r["buckets"].append(dict(npad=npad, B=B, ms=ms, device_ms=dms,
                                      plain_ms=plain_ms, bound_ms=b_ms))
+        share = lambda k, dms: ("" if dms is None else
+                                f" ({bms[k] / dms:.1%} of the device time)")
+        floor = ("" if floor_ms is None else
+                 f"; an empty launch {floor_ms:.4f} ms on the device")
         log(f"gene kernels {label} bucket npad={npad} B={B} P={P} "
             f"({cols} columns): gene_partials bit-equal={p_equal} "
-            f"{pms:.4f} ms per call, {fmt_ms(pdev)} on the device (plain "
-            f"{pplain:.3f} ms); gene_stats_tail CorG bit-equal={corr_equal},"
-            f" CovU/WWt/U max abs err {t_err:.3e} (rtol {GENE_TAIL_RTOL:g}, "
-            f"atol {GENE_TAIL_ATOL:g} normwise) {tms:.4f} ms per call, "
-            f"{fmt_ms(tdev)} on the device (plain {tplain:.3f} ms)")
+            f"{pms:.4f} ms per call, {fmt_ms(pdev)} on the device, bound "
+            f"{bms['gene_partials']:.4f} ms{share('gene_partials', pdev)} "
+            f"(plain {pplain:.3f} ms); gene_stats_tail CorG bit-equal="
+            f"{corr_equal}, CovU/WWt/U max abs err {t_err:.3e} (rtol "
+            f"{GENE_TAIL_RTOL:g}, atol {GENE_TAIL_ATOL:g} normwise) "
+            f"{tms:.4f} ms per call, {fmt_ms(tdev)} on the device, bound "
+            f"{bms['gene_stats_tail']:.4f} ms"
+            f"{share('gene_stats_tail', tdev)}{floor} (plain {tplain:.3f} "
+            f"ms)")
         if not (p_equal and corr_equal and t_ok):
             raise AssertionError(f"gene kernels {label} (npad {npad}) "
                                  f"disagree with their plain versions")
@@ -1482,6 +1501,44 @@ def fmt_ms(ms):
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
+def synthetic_bucket(n_rows, seed=0):
+    """Phase 8's synthetic bucket: SYNTH_GENES genes of SYNTH_NPAD // 2 + 1
+    to SYNTH_NPAD panel rows (the first a full SYNTH_NPAD), random W and
+    z: (buckets, gene rows, Ws, zs) as gene_checks takes them."""
+    rng = np.random.default_rng(seed)
+    sizes = [SYNTH_NPAD] + [int(rng.integers(SYNTH_NPAD // 2 + 1,
+                                             SYNTH_NPAD + 1))
+                            for _ in range(SYNTH_GENES - 1)]
+    idx = [np.sort(rng.choice(n_rows, n, replace=False)).astype(np.int32)
+           for n in sizes]
+    Ws = [rng.normal(size=(6, n)) for n in sizes]
+    zs = [rng.normal(size=n) for n in sizes]
+    return [(SYNTH_NPAD, list(range(SYNTH_GENES)))], idx, Ws, zs
+
+
+def partials_sass():
+    """gene_partials' SASS, per instantiation: its IMMA count, and the
+    shared-memory loads (LDS, LDSM) and global loads (LDG) before its last
+    IMMA, i.e. in its main loop.  Fails unless every instantiation runs
+    on the tensor cores."""
+    out = {}
+    for name, body in sass_bodies("gene_partials_kernel").items():
+        lines = body.splitlines()
+        at = lambda pat: [i for i, ln in enumerate(lines)
+                          if re.search(pat, ln)]
+        imma = at(r"\bIMMA")
+        end = max(imma) if imma else len(lines)
+        out[name] = dict(
+            imma=len(imma),
+            imma_ops=sorted(set(re.findall(r"\bIMMA[.\w]*", body))),
+            lds_in_loop=sum(i < end for i in at(r"\bLDS(M)?\b")),
+            ldg_in_loop=sum(i < end for i in at(r"\bLDG\b")))
+    log(f"gene_partials SASS by instantiation: {out}")
+    if not out or not all(v["imma"] for v in out.values()):
+        raise AssertionError("gene_partials did not compile to IMMA")
+    return out
+
+
 def phase_jepeg(engine, reps=GENE_REPS):
     """prepare_genes -> jepeg_region on the main path's store and input:
     jepegmix with the main path's weights, then jepeg on one population,
@@ -1496,6 +1553,9 @@ def phase_jepeg(engine, reps=GENE_REPS):
     pop_wgt = {p: 1.0 / store.desc.num_pops for p in store.desc.pops}
     total = collections.Counter()
     out = {}
+    floor = device_ms(lambda: torch.cuda._sleep(0)).ms
+    log(f"an empty launch on the current stream (torch.cuda._sleep(0)): "
+        f"{fmt_ms(floor)} on the device (torch.profiler)")
     for mode, kw in (("jepegmix", dict(pop_wgt=pop_wgt)),
                      ("jepeg", dict(study_pop=STUDY_POP))):
         reset_counts()
@@ -1572,7 +1632,17 @@ def phase_jepeg(engine, reps=GENE_REPS):
                          k2=k2_check(f"jepeg {mode} buckets", panel, ids),
                          **gene_checks(f"jepeg {mode}", panel, buckets, idx,
                                        Ws, zs, pg.pop_sizes, pg.wgts,
-                                       engine.settings.lambda_))
+                                       engine.settings.lambda_,
+                                       floor_ms=floor))
+        if mode == "jepegmix":
+            # the tail's tiles, ticket and scratch, and 32 x 32 partial
+            # tiles off the diagonal, on the card at the path's P
+            out["synthetic"] = gene_checks(
+                f"synthetic n={SYNTH_NPAD}", panel,
+                *synthetic_bucket(panel.shape[0]), pg.pop_sizes, pg.wgts,
+                engine.settings.lambda_, floor_ms=floor)
+    out["floor_ms"] = floor
+    out["sass"] = partials_sass()
     return dict(total), out, annot
 
 
@@ -2543,18 +2613,25 @@ K3_EDGES = [(130, 70, 300), (1, 1, 1), (300, 129, 2049), (64, 64, 32),
 K3_EXTREMES = [(-8, -8), (7, -8)]
 
 
-def sass_mma(kernel):
-    """Counts of the tensor-core instructions in the SASS of one kernel of
-    the built library (cuobjdump): mma.sync's IMMA/HMMA and wgmma's
-    IGMMA/HGMMA."""
+def sass_bodies(kernel):
+    """{function: SASS} of the built library's functions whose (mangled)
+    name holds ``kernel`` (cuobjdump)."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     so = [f for f in glob.glob(os.path.join(_build.BUILD_DIR, "*.so"))
           if os.path.basename(f).startswith("libgauss_kernels_")]
     sass = subprocess.run([tool, "-sass", max(so, key=os.path.getmtime)],
                           check=True, capture_output=True, text=True,
                           timeout=300).stdout
-    body = next(f for f in sass.split("Function : ") if kernel in
-                f.split("\n", 1)[0])
+    return {f.split("\n", 1)[0].strip(): f
+            for f in sass.split("Function : ")[1:]
+            if kernel in f.split("\n", 1)[0]}
+
+
+def sass_mma(kernel):
+    """Counts of the tensor-core instructions in the SASS of one kernel of
+    the built library (cuobjdump): mma.sync's IMMA/HMMA and wgmma's
+    IGMMA/HGMMA."""
+    body = next(iter(sass_bodies(kernel).values()))
     return dict(collections.Counter(re.findall(r"\b[IH]G?MMA[.\w]*", body)))
 
 
@@ -2725,6 +2802,7 @@ def main():
     del run
     torch.cuda.empty_cache()
     jepeg_launches, jepeg, annot = phase_jepeg(engine)
+    gene_extra = {k: jepeg.pop(k) for k in ("synthetic", "floor_ms", "sass")}
     gene_ref = jepeg["jepegmix"].pop("frame")
     jepeg["jepeg"].pop("frame")
     with tempfile.TemporaryDirectory(prefix="gauss_smoke_") as tmp:
@@ -2799,7 +2877,8 @@ def main():
         "cholesky_solve": {"impute": kernels["cholesky_solve"],
                            "qcat": qcat_checks["cholesky_solve"]},
         "impute_finalize": {"impute": kernels["impute_finalize"]},
-        **{k: {f"jepeg {m}": r[k] for m, r in jepeg.items()}
+        **{k: {**{f"jepeg {m}": r[k] for m, r in jepeg.items()},
+               f"synthetic n={SYNTH_NPAD}": gene_extra["synthetic"][k]}
            for k in GENE_KERNELS},
     }
     # the later paths' own batches (runner chunks, one window, a streamed
@@ -2843,6 +2922,10 @@ def main():
                "checked_by_path": checked[kname]}
         if kname == "int4_dot":
             row["sass_mma"] = k3_sass
+        if kname == "gene_partials":
+            row["sass"] = gene_extra["sass"]
+        if kname == "gene_stats_tail":
+            row["launch_floor_device_ms"] = gene_extra["floor_ms"]
         rows.append(row)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -98,19 +98,20 @@ _SIGNATURES = {
     "gauss_chol_solve_flags": [ctypes.c_int, ctypes.c_int, ctypes.c_int],
     # (*blocks_per_sm)
     "gauss_chol_solve_smem": [ctypes.POINTER(ctypes.c_int)],
-    # gene_stats: (X, S, B, n, P, *bounds, C, Ssum, Q, stream)
+    # gene_stats: (X, S, B, n, P, *bounds, groups, *group, warps, C, Ssum,
+    #  Q, stream)
     "gauss_gene_partials": [_P, ctypes.c_longlong, ctypes.c_int,
                             ctypes.c_int, ctypes.c_int,
-                            ctypes.POINTER(ctypes.c_int), _P, _P, _P, _P],
-    # (n): tail tiles per gene
-    "gauss_gene_tail_tiles": [ctypes.c_int],
+                            ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+                            ctypes.POINTER(ctypes.c_int), ctypes.c_int, _P,
+                            _P, _P, _P],
     # (C, S, Q, P, B, n, pooled, *consts, npool, ridge, ids, Wz, out0,
-    #  out1, out2, scratch, tickets, stats, stream)
+    #  out1, out2, scratch, tickets, genes, stages, stats, stream)
     "gauss_gene_tail": [_P, _P, _P, ctypes.c_int, ctypes.c_int,
                         ctypes.c_int, ctypes.c_int,
                         ctypes.POINTER(ctypes.c_double), ctypes.c_double,
                         ctypes.c_double, _P, _P, _P, _P, _P, _P, _P,
-                        ctypes.c_int, _P],
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
 }
 
 

@@ -8,13 +8,19 @@ statistics.
 
 - ``gene_partials``: C [P, B, n, n], S [P, B, n] and Q [P, B, n], each
   segment's Gram, row sums and sums of squares, exact integers in float32
-  (dosages 0..2: every sum stays below 2^24 while 4 m_k < 2^24);
+  (dosages 0..2: every sum stays below 2^24 while 4 m_k < 2^24), on the
+  int8 tensor cores (``mma.sync``) from registers, a block's warps
+  sharing the columns of a group of consecutive segments
+  (``partials_groups``);
 - ``gene_stats_tail``: from those, the float64 CalWgtCov combine in the
   reference's population order (src/util.cpp:49-70, 103-124), the pad
   rows' pairs zeroed, the 1 + lambda ridge diagonal (src/gene.cpp:569-586)
   and CovU = W R W^T, WWt = W W^T, U = W z (src/gene.cpp:594-648), R never
   stored; ``gene_corr`` runs the same kernel for the correlations CorG
-  [B, n, n] alone (no mask, no ridge).
+  [B, n, n] alone (no mask, no ridge).  A block takes several genes (n <=
+  16) or one 64 x 64 tile of a gene's pairs, with every population's
+  partials brought into shared memory by TMA boxes before its float64
+  chains start, in rounds when they do not all fit (``tail_layout``).
 
 No Pallas kernel corresponds to them: gauss_tpu leaves this work to XLA
 (``gauss_tpu/core/genekernels.py:_gene_stats_body``, jitted in
@@ -33,7 +39,7 @@ under ``full_f32_matmul``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +51,68 @@ from . import _build
 launches = {"gene_partials": 0, "gene_stats_tail": 0, "gene_corr": 0}
 #: populations (segments) a launch takes at most
 MAX_POPS = 64
+#: gene_partials: warps a block at most, a block's steps of a group at
+#: most (two a warp), and the warps an H100 holds at once at the kernel's
+#: ~120 registers a thread (132 SMs x 16)
+PARTIALS_MAX_WARPS = 8
+PARTIALS_GROUP_STEPS = 2 * PARTIALS_MAX_WARPS
+PARTIALS_RESIDENT_WARPS = 132 * 16
+#: gene_stats_tail: pair threads a block, a tile's side at most, and the
+#: shared memory a round of populations may take
+TAIL_THREADS = 256
+TAIL_TILE = 64
+TAIL_ROUND_BYTES = 160 * 1024
+
+
+def partials_groups(bounds, n: int, S: int, B: int
+                    ) -> Tuple[List[int], int]:
+    """(group starts, warps) of a gene_partials launch.  A warp's step
+    reads 256 bytes of each of its rows at n <= 16 (four 16-byte pieces a
+    thread) and 128 above; a segment takes its columns from its first
+    16-byte piece to its last (at most S) in steps.  Consecutive segments
+    form a group, one block's work, while their steps stay within
+    PARTIALS_GROUP_STEPS and they number at most 16 (8 when n >= 32, the
+    block's shared sums); a longer segment is a group alone.  The blocks'
+    warps share their group's steps: as many warps as give the longest
+    group about two steps each, 1 to PARTIALS_MAX_WARPS, but no more than
+    4 when the launch's B genes x tiles x groups blocks would fill the
+    card twice over at more (smaller blocks then finish together)."""
+    step = 256 if n <= 16 else 128
+    most_segs = 16 if n <= 16 else 8
+    b = np.asarray(bounds, dtype=np.int64)
+    lo = b[:-1] & ~15
+    hi = np.minimum((b[1:] + 15) & ~15, S)
+    steps = [int(x) for x in (hi - lo + step - 1) // step]
+    starts, cur, widest = [0], 0, 0
+    for k, st in enumerate(steps):
+        if k > starts[-1] and (cur + st > PARTIALS_GROUP_STEPS
+                               or k - starts[-1] == most_segs):
+            starts.append(k)
+            cur = 0
+        cur += st
+        widest = max(widest, cur)
+    warps = max(1, min(PARTIALS_MAX_WARPS, (widest + 1) // 2))
+    nt = max(1, n // 32) if n >= 32 else 1
+    blocks = B * nt * (nt + 1) // 2 * len(starts)
+    if warps > 4 and blocks * warps > 2 * PARTIALS_RESIDENT_WARPS:
+        warps = 4
+    return starts + [len(steps)], warps
+
+
+def tail_layout(n: int, P: int) -> Tuple[int, int, int, int]:
+    """(tile side, tiles a gene, genes a block, populations a round) of
+    gene_stats_tail at bucket size n over P populations: a block takes
+    TAIL_THREADS pairs' worth of genes (n <= 16), one whole gene (n = 32,
+    64) or one 64 x 64 tile of a gene's pairs (n >= 128); a round brings
+    in as many populations' C, S and Q of the block, with five float64
+    values a row and population, as TAIL_ROUND_BYTES holds, all P when
+    they fit."""
+    ts = min(n, TAIL_TILE)
+    nt = n // ts
+    genes = max(1, TAIL_THREADS // (ts * ts)) if nt == 1 else 1
+    rows = genes * ts if nt == 1 else 2 * ts
+    stage = 4 * (genes * ts * ts + 2 * rows) + 8 * 5 * rows
+    return ts, nt * nt, genes, max(1, min(P, TAIL_ROUND_BYTES // stage))
 
 
 def gene_partials_plain(Gb: torch.Tensor, bounds: np.ndarray):
@@ -164,8 +232,10 @@ def gene_partials(Gb: torch.Tensor, bounds: np.ndarray):
     Ssum = torch.empty((P, B, n), dtype=torch.float32, device=dev)
     Q = torch.empty((P, B, n), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
+        groups, warps = partials_groups(b, n, S, B)
         err = lib.gauss_gene_partials(
             Gb.data_ptr(), S, B, n, P, (ctypes.c_int * (P + 1))(*b),
+            len(groups) - 1, (ctypes.c_int * len(groups))(*groups), warps,
             C.data_ptr(), Ssum.data_ptr(), Q.data_ptr(), _build.stream(dev))
     _build.check(err, "gene_partials")
     launches["gene_partials"] += 1
@@ -189,6 +259,13 @@ def _consts(P, true_sizes, wgts):
     return False, (ctypes.c_double * (4 * P))(*vals), 0.0
 
 
+def _aligned(name, *tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the tail
+    brings them into shared memory by bulk copies)."""
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: inputs must be 16-byte aligned")
+
+
 def gene_corr(C: torch.Tensor, S: torch.Tensor, Q: torch.Tensor,
               true_sizes: Sequence[int],
               wgts: Optional[Sequence[float]]) -> torch.Tensor:
@@ -203,13 +280,15 @@ def gene_corr(C: torch.Tensor, S: torch.Tensor, Q: torch.Tensor,
         return gene_corr_plain(C, S, Q, true_sizes, wgts)
     lib = _build.kernel_library("gene_corr", dev, (C, S, Q))
     _sizes_ok("gene_corr", n, P)
+    _aligned("gene_corr", C, S, Q)
     pooled, consts, npool = _consts(P, true_sizes, wgts)
+    _, _, genes, stages = tail_layout(n, P)
     out = torch.empty((B, n, n), dtype=torch.float64, device=dev)
     with torch.cuda.device(dev):
         err = lib.gauss_gene_tail(
             C.data_ptr(), S.data_ptr(), Q.data_ptr(), P, B, n, int(pooled),
             consts, npool, 0.0, None, None, out.data_ptr(), None, None, None,
-            None, 0, _build.stream(dev))
+            None, genes, stages, 0, _build.stream(dev))
     _build.check(err, "gene_corr")
     launches["gene_corr"] += 1
     return out
@@ -244,11 +323,12 @@ def gene_stats_tail(C: torch.Tensor, S: torch.Tensor, Q: torch.Tensor,
                                      lam)
     lib = _build.kernel_library("gene_stats_tail", dev, (C, S, Q, ids, Wz))
     _sizes_ok("gene_stats_tail", n, P)
+    _aligned("gene_stats_tail", C, S, Q, ids, Wz)
     pooled, consts, npool = _consts(P, true_sizes, wgts)
+    _, tiles, genes, stages = tail_layout(n, P)
     f64 = dict(dtype=torch.float64, device=dev)
     CovU, WWt, U = (torch.empty((B, 6, 6), **f64),
                     torch.empty((B, 6, 6), **f64), torch.empty((B, 6), **f64))
-    tiles = lib.gauss_gene_tail_tiles(n)
     scratch = tickets = None
     if tiles > 1:
         scratch = torch.empty((B * tiles * 36,), **f64)
@@ -258,7 +338,8 @@ def gene_stats_tail(C: torch.Tensor, S: torch.Tensor, Q: torch.Tensor,
             C.data_ptr(), S.data_ptr(), Q.data_ptr(), P, B, n, int(pooled),
             consts, npool, 1.0 + lam, ids.data_ptr(), Wz.data_ptr(),
             CovU.data_ptr(), WWt.data_ptr(), U.data_ptr(),
-            _build.ptr(scratch), _build.ptr(tickets), 1, _build.stream(dev))
+            _build.ptr(scratch), _build.ptr(tickets), genes, stages, 1,
+            _build.stream(dev))
     _build.check(err, "gene_stats_tail")
     launches["gene_stats_tail"] += 1
     return CovU, WWt, U

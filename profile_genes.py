@@ -15,11 +15,13 @@ jepegmix (the 29 populations, equal weights) and jepeg (STUDY_POP):
   the result's copy included), as chip_smoke.py's phase 8 times it;
 - jepeg_region's wall, median of GENE_REPS calls, and genes per second;
 - the CUDA kernels and memory copies torch.profiler records over one
-  jepeg_region call, per gene bucket, and the kernels' device time.
+  jepeg_region call, per gene bucket, the kernels' device time, and that
+  of the two gene kernels (gene_partials_kernel, gene_tail_kernel)
+  summed over the call's buckets.
 
 Each mode ends in one JSON line ({"root", "mode", "gene_stats_ms",
 "wall_ms", "genes_per_s", "buckets", "kernels", "copies",
-"kernel_device_ms", "card"}).  To compare two trees, run it in turns in
+"kernel_device_ms", "partials_device_ms", "tail_device_ms", "card"}).  To compare two trees, run it in turns in
 one call (other, this, this, other), each in its own process: unpack the
 other tree with `git archive <commit> | tar -x -C scratch_archive/parent`
 and pass --root scratch_archive/parent.  Imports nothing of JAX.
@@ -88,6 +90,9 @@ def main():
         kernels = round(sum(prof.counts.values()))
         copies = None if prof.copies is None else round(prof.copies)
         kdev = sum(prof.kernels.get(k, 0.0) for k in prof.counts)
+        by = lambda pre: sum(ms for k, ms in prof.kernels.items()
+                             if k.startswith(pre))
+        pdev, tdev = by("gene_partials_kernel"), by("gene_tail_kernel")
         top = sorted(((ms * 1e3, prof.counts.get(k), k[:60])
                       for k, ms in prof.kernels.items()), reverse=True)[:6]
         log(f"{mode}: {len(idx)} genes in {nb} buckets; gene stats on the "
@@ -95,12 +100,14 @@ def main():
             f"jepeg_region {wall:.3f} ms wall -> {len(idx) / wall * 1e3:.1f}"
             f" genes/s; torch.profiler over one jepeg_region: {kernels} "
             f"CUDA kernels ({kernels / nb:.1f} per bucket), {copies} copies"
-            f" / sets, kernels' device time {kdev:.3f} ms; top (us, count, "
+            f" / sets, kernels' device time {kdev:.3f} ms (gene_partials "
+            f"{pdev:.4f}, gene_stats_tail {tdev:.4f}); top (us, count, "
             f"kernel): {top}")
         print(json.dumps(dict(root=root, mode=mode, gene_stats_ms=stats_ms,
                               wall_ms=wall, genes_per_s=len(idx) / wall * 1e3,
                               buckets=nb, kernels=kernels, copies=copies,
-                              kernel_device_ms=kdev, card=smi)), flush=True)
+                              kernel_device_ms=kdev, partials_device_ms=pdev,
+                              tail_device_ms=tdev, card=smi)), flush=True)
         del pg, panel
         torch.cuda.empty_cache()
 

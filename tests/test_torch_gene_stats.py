@@ -14,7 +14,12 @@ library and never a plain version, and how often each entry point of
 core/genekernels launches each kernel.  The `gpu` tests hold each kernel
 against its plain version on the card: partials and CorG bit-equal,
 CovU / WWt / U within rtol 1e-12 / atol 1e-13 normwise (the kernel sums
-the contractions in another order), at bucket sizes 8 to 512.
+the contractions in another order), at bucket sizes 8 to 512, segment
+edges at every offset of a warp's step, segments shorter than a 16-byte
+piece or empty, one long segment split over a block's warps, and buckets
+whose gene count is not a multiple of the tail's genes a block.  The
+host's grouping of segments into partials blocks and the tail's layout
+are tested on the CPU.
 """
 
 import contextlib
@@ -29,6 +34,7 @@ from gauss_tpu.core import genekernels as j_gk
 from gauss_tpu_torch.core import genekernels as t_gk
 from gauss_tpu_torch.core.stats import full_f32_matmul, segment_bounds
 from gauss_tpu_torch.ops import _build, gather, gene_stats
+from gauss_tpu_torch.utils.benchdata import POPS_33KG
 
 RTOL, ATOL = 1e-10, 1e-12            # against gauss_tpu (float64 combine)
 GPU_RTOL, GPU_ATOL = 1e-12, 1e-13    # kernel against plain, normwise
@@ -190,6 +196,82 @@ def test_gene_corr_matrices_pads_rows_to_16():
             np.testing.assert_allclose(a, r, rtol=RTOL, atol=ATOL)
 
 
+# ------------------------------------------------------- launch choices
+
+MIX = segment_bounds([s for _, s, _ in POPS_33KG])   # 64 to 6,360 columns
+
+
+@pytest.mark.parametrize("bounds,n,S,B,starts,warps", [
+    (MIX, 16, 33168, 126, [0, 4, 6, 7, 11, 12, 16, 22, 23, 28, 29], 4),
+    (MIX, 8, 33168, 96, [0, 4, 6, 7, 11, 12, 16, 22, 23, 28, 29], 4),
+    (MIX, 16, 33168, 20, [0, 4, 6, 7, 11, 12, 16, 22, 23, 28, 29], 8),
+    (MIX, 64, 33168, 6, [0, 3, 4, 5, 6, 7, 11, 12, 13, 17, 18, 22, 23, 27,
+                         28, 29], 8),                  # 128-byte steps
+    (MIX, 256, 33168, 2, [0, 3, 4, 5, 6, 7, 11, 12, 13, 17, 18, 22, 23, 27,
+                          28, 29], 4),                 # 36 tiles a gene
+    ([0, 6360], 16, 6368, 184, [0, 1], 8),             # jepeg: one segment
+    ([0, 6360], 512, 6368, 3, [0, 1], 8),
+    (segment_bounds(SIZES["narrow"]), 8, 96, 5, [0, 16, 29], 8),
+    (segment_bounds(SIZES["narrow"]), 32, 96, 5, [0, 8, 16, 24, 29], 4),
+    ([0, 0, 3, 3], 16, 16, 5, [0, 3], 1),              # empty segments
+    ([5, 700], 16, 704, 5, [0, 1], 2),                 # one step past 512
+], ids=["mix-n16", "mix-n8", "mix-n16-B20", "mix-n64", "mix-n256",
+        "jepeg-n16", "jepeg-n512", "narrow-n8", "narrow-n32", "empty",
+        "unaligned"])
+def test_partials_groups(bounds, n, S, B, starts, warps):
+    """A partials block takes consecutive segments while their steps (a
+    warp's 256 bytes a row at n <= 16, 128 above, from a segment's first
+    16-byte piece to its last) stay within PARTIALS_GROUP_STEPS and they
+    number at most 16 (8 at n >= 32), a longer segment alone; its warps
+    give the longest group about two steps each, 1 to
+    PARTIALS_MAX_WARPS, and 4 at most when more would fill the card's
+    warps twice over."""
+    got, w = gene_stats.partials_groups(bounds, n, S, B)
+    assert (got, w) == (starts, warps)
+    step = 256 if n <= 16 else 128
+    b = np.asarray(bounds)
+    steps = -(-(np.minimum((b[1:] + 15) // 16 * 16, S) - b[:-1] // 16 * 16)
+              // step)
+    for g0, g1 in zip(got, got[1:]):
+        assert g0 < g1 and g1 - g0 <= (16 if n <= 16 else 8)
+        assert g1 - g0 == 1 or steps[g0:g1].sum() <= \
+            gene_stats.PARTIALS_GROUP_STEPS
+
+
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128, 256, 512, 1024])
+def test_tail_layout_fits(n):
+    """The tail's layout at every population count: a block's genes fill
+    its threads with pairs at n <= 16 (none idles) and take one gene or
+    one 64 x 64 tile above; all P populations in one round while they fit
+    (n <= 32 at POPS_33KG's 29 populations), else rounds within
+    TAIL_ROUND_BYTES; the shared memory the kernel then asks for (a round's
+    C, S, Q and row values, or the stats epilogue's R, W R and W W^T
+    slices where larger, then W z and ids, 128-byte aligned) stays within
+    its 200 KB."""
+    up = lambda x: -(-x // 128) * 128
+    for P in range(1, gene_stats.MAX_POPS + 1):
+        ts, tiles, genes, stages = gene_stats.tail_layout(n, P)
+        assert ts == min(n, 64) and tiles == (n // ts) ** 2
+        pairs = genes * ts * ts
+        if n <= 16:
+            assert pairs == gene_stats.TAIL_THREADS
+        else:
+            assert genes == 1
+        rows = genes * ts if tiles == 1 else 2 * ts
+        stage = 4 * (pairs + 2 * rows) + 40 * rows
+        assert 1 <= stages <= P
+        assert stages * stage <= gene_stats.TAIL_ROUND_BYTES
+        if stages < P:
+            assert (stages + 1) * stage > gene_stats.TAIL_ROUND_BYTES
+        if n <= 32 and P <= 29:
+            assert stages == P
+        ring = (up(4 * stages * pairs) + 2 * up(4 * stages * rows)
+                + 40 * stages * rows)
+        epi = 8 * (pairs + genes * 6 * ts + gene_stats.TAIL_THREADS)
+        smem = up(max(ring, epi)) + up(56 * rows) + 4 * rows + 128
+        assert smem <= 200 * 1024
+
+
 # --------------------------------------------------------------- fake CUDA
 
 def _fake_mode():
@@ -258,10 +340,6 @@ class _RecordingLib:
     def gauss_gene_partials(self, X, S, B, n, P, bounds, *rest):
         self.calls.append(("gene_partials", B, n, P, list(bounds)[:P + 1]))
         return 0
-
-    def gauss_gene_tail_tiles(self, n):
-        ts = min(n, 64)
-        return (n // ts) ** 2
 
     def gauss_gene_tail(self, C, S, Q, P, B, n, pooled, *rest):
         self.calls.append(("gene_stats_tail", B, n, P, rest[-2]))
@@ -451,3 +529,77 @@ def test_kernels_match_plain_on_gpu(P, B, npad, weighted):
         assert torch.equal(a, b)
     for a, b in zip(tail, got):
         assert _same_bits(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("width", [255, 257])
+@pytest.mark.parametrize("npad", [8, 16, 32])
+def test_partials_kernel_segment_edges_on_gpu(npad, width):
+    """64 segments of 255 or 257 columns from four starting columns: their
+    edges fall at every offset modulo a warp's step (256 bytes a row at n
+    <= 16, 128 above; every offset modulo 16 too); partials bit-equal."""
+    dev = _card()
+    for start in range(4):
+        bounds = np.array([start + width * k for k in range(65)])
+        S = -(-int(bounds[-1]) // 16) * 16
+        G = _panel((S,), R=100, seed=start)
+        G[:, int(bounds[-1]):] = 7               # never read
+        ids, _, _ = _bucket(G, 3, npad, seed=start)
+        Gb, part = _partials(G, ids, 3, npad, bounds, device=dev)
+        with full_f32_matmul():
+            plain = gene_stats.gene_partials_plain(Gb, bounds)
+        for a, b in zip(part, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("npad", [8, 16, 32, 64])
+def test_partials_kernel_short_and_long_segments_on_gpu(npad):
+    """Segments shorter than one 16-byte piece (and empty ones), one
+    segment of 3 columns alone, and jepeg's one segment of 6,360 columns
+    (split over a block's warps): partials bit-equal."""
+    dev = _card()
+    for bounds in ([0, 0, 3, 3, 10, 25, 26, 40, 41, 47, 48, 48, 63],
+                   [5, 8], [0, 6360]):
+        bounds = np.asarray(bounds)
+        S = -(-(int(bounds[-1]) + 1) // 16) * 16
+        G = _panel((S,), R=max(100, 2 * npad), seed=npad)
+        ids, _, _ = _bucket(G, 5, npad, seed=npad)
+        Gb, part = _partials(G, ids, 5, npad, bounds, device=dev)
+        with full_f32_matmul():
+            plain = gene_stats.gene_partials_plain(Gb, bounds)
+        for a, b in zip(part, plain):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("weighted", [False, True],
+                         ids=["pooled", "weighted"])
+@pytest.mark.parametrize("npad", [8, 16])
+def test_tail_kernel_partial_blocks_on_gpu(npad, weighted):
+    """Buckets of 1 to 7 genes at n = 8 (4 genes a tail block) and 16,
+    each with a real NaN row and an empty slot as _bucket makes them:
+    CorG bit-equal, CovU / WWt / U within rtol 1e-12 / atol 1e-13
+    normwise, the NaN gene's CovU NaN and the empty slot's zero."""
+    dev = _card()
+    sizes = SIZES[29]
+    G = _panel(sizes, R=200, seed=npad)
+    wgts = _wgts(sizes) if weighted else None
+    bounds = _bounds(sizes, weighted)
+    for B in range(1, 8):
+        ids, Wz, _ = _bucket(G, B, npad, seed=B)
+        _, part = _partials(G, ids, B, npad, bounds, device=dev)
+        assert _same_bits(gene_stats.gene_corr(*part, sizes, wgts),
+                          gene_stats.gene_corr_plain(*part, sizes, wgts))
+        ids_d = torch.from_numpy(ids).to(dev)
+        Wz_d = torch.from_numpy(Wz).to(dev)
+        got = gene_stats.gene_stats_tail(*part, sizes, wgts, ids_d, Wz_d,
+                                          LAM)
+        ref = gene_stats.gene_stats_tail_plain(*part, sizes, wgts, ids_d,
+                                               Wz_d, LAM)
+        for a, r in zip(got, ref):
+            same, d, scale = _normwise(a, r)
+            assert same and d <= GPU_RTOL * scale + GPU_ATOL, (B, d, scale)
+        assert torch.isnan(got[0][0]).all()
+        if B > 1:
+            assert not got[0][-1].any() and not got[2][-1].any()
